@@ -1,0 +1,393 @@
+"""Smoke run of the PyTorch + CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one line each:
+  1. build   — compile the CUDA kernels of plslam_torch/csrc with nvcc.
+  2. kernels — each kernel against its plain PyTorch version on the card at
+               the main path's shapes (exact equality), with the time per
+               call, eager and replayed from a CUDA graph (the device's own
+               time), beside the plain version's, a library yardstick and
+               the bound (the least time the card could take for the same
+               work).
+  3. main    — the 150-frame synthetic room (640x480 RGB-D, points+lines)
+               through plslam_torch's Tracker with local_mapper=None, with
+               the launch counts that prove both kernels ran on the path,
+               tracked fps, per-frame latency and ATE against ground truth;
+               then one step through the rescue stage, which the room
+               never needs, forced by a wrong velocity prior.
+Then a JSON line of per-kernel numbers, the card's name and power limit,
+and as the last line {"ok": true, "device": {...}}.
+
+Exits non-zero, printing no result, without CUDA, when the package is
+missing, or when any phase fails.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+# H100 SXM peaks: the HBM3 rate (NVIDIA data sheet); fp32 instructions that
+# are not fused multiply-adds (sub, min, max) issue at half the data sheet's
+# FMA-counted 67 TFLOP/s; __popc issues 16 per clock per SM on compute
+# capability 9.0 (CUDA C++ programming guide, arithmetic instruction
+# throughput), on 132 SMs at the 1.98 GHz boost clock
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12 / 2
+POPC_OPS_S = 132 * 16 * 1.98e9
+FAST_OPS_PER_PX = 185  # 16 sub, 2 x (64 min + 15 max) arcs, 1 max, 1 threshold, 9 NMS
+POPC_PER_PAIR = 8  # one per 32-bit word of a 256-bit descriptor
+# the TPU kernels the CUDA kernels replace: the pl.pallas_call in the JAX
+# package's module
+REPLACES = {"fast_score_nms": "ops/pallas_fast.py:120",
+            "hamming_top2": "ops/pallas_matching.py:116"}
+N_FRAMES = 150  # bench.py's sequence
+REPS = 50
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def require(cond, msg):
+    """A check that holds under ``python -O`` too."""
+    if not cond:
+        raise AssertionError(msg)
+
+
+def cuda_ms(fn, reps=REPS, warm=5):
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=REPS):
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed between two CUDA events, so that no host enqueue sits
+    between the kernels. At these sizes a call's eager CUDA-event time
+    (``cuda_ms``) is bound by how fast the host enqueues its launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timings(fn):
+    """(eager CUDA-event ms, CUDA-graph device ms) per call of ``fn``."""
+    return cuda_ms(fn), device_ms(fn)
+
+
+def bound(nbytes, ops, ops_rate):
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ate(est_centers, gt_centers):
+    """RMSE and max of the camera-center error after Horn alignment (the
+    TUM evaluate_ate protocol, no scale)."""
+    a, b = est_centers.T.astype(np.float64), gt_centers.T.astype(np.float64)
+    ca, cb = a.mean(1, keepdims=True), b.mean(1, keepdims=True)
+    U, _, Vt = np.linalg.svd((a - ca) @ (b - cb).T)
+    S = np.eye(3)
+    if np.linalg.det(Vt.T @ U.T) < 0:
+        S[2, 2] = -1
+    R = Vt.T @ S @ U.T
+    err = np.linalg.norm(R @ (a - ca) + cb - b, axis=0)
+    return float(np.sqrt((err**2).mean())), float(err.max())
+
+
+def render_frames(cfg, n):
+    from plslam_torch.utils.synthetic import RoomScene, smooth_trajectory
+
+    scene = RoomScene(0)
+    poses = smooth_trajectory(2 * n)[:n]
+    f = cfg.tracking.depth_map_factor
+    frames = []
+    for R, t in poses:
+        gray, depth = scene.render(cfg.camera, R, t)
+        frames.append((np.clip(gray, 0, 255).astype(np.uint8),
+                       np.clip(depth * f, 0, 65535).astype(np.uint16)))
+    return frames, poses
+
+
+def check_fast(cfg, frames, dev):
+    """Kernel vs plain at all 8 pyramid levels of rendered frames."""
+    import torch
+
+    from plslam_torch.ops import fast, image
+
+    th = float(cfg.orb.min_th_fast)
+    err = 0.0
+    res = dict(name="fast_score_nms", route="cuda",
+               source="plslam_torch/csrc/fast_score_nms.cu",
+               replaces=REPLACES["fast_score_nms"], ms=0.0, device_ms=0.0,
+               plain_ms=0.0, plain_device_ms=0.0, bound_ms=0.0, library_ms=None,
+               library_device_ms=None)
+    shapes = []
+    for k in (0, 40, 80):
+        g = frames[k][0]
+        g = ((g >> 2) << 2) + 2  # the tracker's 6-bit gray, half-step restored
+        img = torch.as_tensor(g, device=dev).float()
+        levels = image.build_pyramid(img, cfg.orb.n_levels, cfg.orb.scale_factor)
+        for lvl in levels:
+            got = fast.fast_score_nms(lvl, th)
+            want = fast.fast_score_nms_plain(lvl, th)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"fast_score_nms differs at {tuple(lvl.shape)}: "
+                                     f"{(got != want).sum().item()} pixels")
+            err = max(err, float((got - want).abs().max()))
+            if k == 0:
+                h, w = lvl.shape
+                shapes.append((h, w))
+                t_k, d_k = timings(lambda: fast.fast_score_nms(lvl, th))
+                t_p, d_p = timings(lambda: fast.fast_score_nms_plain(lvl, th))
+                b, by = bound(8 * h * w, FAST_OPS_PER_PX * h * w, FP32_OPS_S)
+                log(f"  fast_score_nms {h}x{w}: kernel {t_k:.4f} ms (device "
+                    f"{d_k:.4f}), plain {t_p:.4f} ms (device {d_p:.4f}), bound "
+                    f"{b * 1e3:.3f} us ({by})")
+                for key, v in (("ms", t_k), ("device_ms", d_k), ("plain_ms", t_p),
+                               ("plain_device_ms", d_p), ("bound_ms", b)):
+                    res[key] += v
+    npx = sum(h * w for h, w in shapes)
+    _, by = bound(8 * npx, FAST_OPS_PER_PX * npx, FP32_OPS_S)
+    res.update(max_abs_err=err, bound_by=by, shapes="8 pyramid levels, "
+               + ", ".join(f"{h}x{w}" for h, w in shapes))
+    return res
+
+
+def check_hamming(cfg, frames, dev):
+    """Kernel vs plain at the motion shape, the local-map shape with a
+    windowed gate, the rescue's dense gate at the local-map shape, and a
+    ragged shape with planted ties."""
+    import torch
+
+    from plslam_torch.models import frame as mframe
+    from plslam_torch.ops import hamming
+
+    rng = np.random.default_rng(0)
+    g, d = frames[0]
+    fd = mframe.build_frame(torch.as_tensor(g, device=dev),
+                            torch.as_tensor(d.astype(np.int32), device=dev), cfg)
+    t_desc = fd.kp_desc
+    t_uv = fd.kp_xy_un
+    cases = {}
+    # motion match: previous-frame queries vs this frame, 15 px windows
+    q_uv = t_uv + torch.as_tensor(rng.normal(0, 4, (1024, 2)), dtype=torch.float32, device=dev)
+    q = t_desc.clone()
+    flip = torch.as_tensor(rng.random((1024, 32)) < 0.05, device=dev)
+    q = torch.where(flip, q ^ 0x10, q)
+    win = ((q_uv[:, None] - t_uv[None]).abs() < 15.0).all(-1)
+    cases["1024x1024"] = (q, t_desc, win & fd.kp_valid[None, :])
+    # local map: 8192 landmarks spread over the image, 12 px windows
+    lm_uv = torch.as_tensor(rng.uniform([0, 0], [640, 480], (8192, 2)),
+                            dtype=torch.float32, device=dev)
+    lm = torch.as_tensor(rng.integers(0, 256, (8192, 32), dtype=np.uint8), device=dev)
+    lm[:1024] = q  # a realistic share of near-duplicate descriptors
+    win = ((lm_uv[:, None] - t_uv[None]).abs() < 12.0).all(-1)
+    cases["8192x1024"] = (lm.contiguous(), t_desc, win & fd.kp_valid[None, :])
+    # rescue: the full local map against every keypoint, no window
+    # (lm_valid x kp_valid, here with every slot of the local map filled)
+    cases["8192x1024 dense"] = (lm.contiguous(), t_desc,
+                                fd.kp_valid[None, :].expand(8192, -1).contiguous())
+    # ragged, with planted ties on the best distance
+    tq = torch.as_tensor(rng.integers(0, 256, (1000, 32), dtype=np.uint8), device=dev)
+    tt = torch.as_tensor(rng.integers(0, 256, (777, 32), dtype=np.uint8), device=dev)
+    tt[100:200] = tq[:100]
+    tt[300:400] = tq[:100]  # each of the first 100 queries has two exact twins
+    gate = torch.as_tensor(rng.random((1000, 777)) < 0.5, device=dev)
+    gate[:100, 100:200] = True
+    gate[:100, 300:400] = True
+    gate[7] = False  # a fully gated row
+    cases["1000x777"] = (tq, tt.contiguous(), gate)
+
+    out = None
+    for name, (qq, tt_, gg) in cases.items():
+        got = hamming.hamming_top2(qq, tt_, gg)
+        want = hamming.hamming_top2_plain(qq, tt_, gg)
+        torch.cuda.synchronize()
+        for a, b, what in zip(got, want, ("best", "idx", "second")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"hamming_top2 {what} differs at {name}: "
+                                     f"{(a != b).sum().item()} rows")
+        n, m = gg.shape
+        nnz = int(gg.sum())
+        t_k, d_k = timings(lambda: hamming.hamming_top2(qq, tt_, gg))
+        t_p, d_p = timings(lambda: hamming.hamming_top2_plain(qq, tt_, gg))
+        qb = hamming.unpack_bits(qq).float()
+        tb = hamming.unpack_bits(tt_).float().T.contiguous()
+        t_l, d_l = timings(lambda: torch.matmul(qb, tb))
+        b, by = bound(32 * n + 32 * m + n * m + 12 * n, POPC_PER_PAIR * nnz, POPC_OPS_S)
+        log(f"  hamming_top2 {name}: gated {nnz} pairs; kernel {t_k:.4f} ms "
+            f"(device {d_k:.4f}), plain {t_p:.4f} ms (device {d_p:.4f}), matmul "
+            f"on unpacked bits {t_l:.4f} ms (device {d_l:.4f}), bound "
+            f"{b * 1e3:.3f} us ({by})")
+        if name == "8192x1024":
+            out = dict(name="hamming_top2", route="cuda",
+                       source="plslam_torch/csrc/hamming_top2.cu",
+                       replaces=REPLACES["hamming_top2"],
+                       max_abs_err=0.0, ms=t_k, device_ms=d_k, plain_ms=t_p,
+                       plain_device_ms=d_p, bound_ms=b, bound_by=by,
+                       library_ms=t_l, library_device_ms=d_l,
+                       shapes="8192x1024 local-map match (also checked at "
+                              "1024x1024, 8192x1024 with the rescue's dense "
+                              "gate, and 1000x777)")
+    return out
+
+
+def main_path(cfg, frames, poses, dev):
+    import torch
+
+    from plslam_torch.models.map import SlamMap
+    from plslam_torch.models.tracking import OK, Tracker
+    from plslam_torch.ops import fast, hamming
+
+    m = SlamMap(cfg, device=dev)
+    tracker = Tracker(cfg, m)
+    n = len(frames)
+    fast.fast_score_nms.launches = 0
+    hamming.hamming_top2.launches = 0
+    per_frame = []
+    t0 = time.perf_counter()
+    for i, (g, d) in enumerate(frames):
+        s = time.perf_counter()
+        tracker.process(g, d, i / 30.0)
+        per_frame.append(time.perf_counter() - s)
+    tracker.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fast_score_nms": fast.fast_score_nms.launches,
+                "hamming_top2": hamming.hamming_top2.launches}
+    rows = len(tracker.trajectory)
+    require(rows == n, f"trajectory has {rows} rows for {n} frames")
+    require(tracker.state == OK, f"tracker state {tracker.state} after the run")
+    require(m.n_kf >= 3, f"{m.n_kf} keyframes")
+    require(m.n_lines() > 0, "no map lines")
+    est = np.array([-(R.T @ t) for _, R, t in tracker.trajectory])
+    gt = np.array([-(R.T @ t) for R, t in poses])
+    require(np.isfinite(est).all(), "non-finite camera centres")
+    rmse, mx = ate(est, gt)
+    require(rmse < 0.012 and mx < 0.030, f"ATE rmse {rmse:.4f} m max {mx:.4f} m")
+    built = n  # every process() call builds one frame
+    tracked = n - 1  # every frame after the initializing one is dispatched
+    require(launches["fast_score_nms"] == 8 * built, f"launches {launches}")
+    require(launches["hamming_top2"] >= 3 * tracked, f"launches {launches}")
+    ms = np.array(per_frame[1:]) * 1e3  # the first frame initializes
+    return dict(frames=n, tracked=rows, keyframes=m.n_kf, points=m.n_points(),
+                lines=m.n_lines(), fps=n / wall, p50_ms=float(np.percentile(ms, 50)),
+                p90_ms=float(np.percentile(ms, 90)), ate_rmse_cm=rmse * 100,
+                ate_max_cm=mx * 100, launches=launches,
+                rescue=rescue_step(cfg, tracker, frames[-1], dev))
+
+
+def rescue_step(cfg, tracker, frame, dev):
+    """The rescue stage on the card, which the room never needs: the last
+    frame tracked again from the last pose with a wrong velocity prior
+    (0.4 m sideways, 20 degrees of yaw) starves the motion stage, and the
+    windowless local-map match must carry the frame back onto its pose."""
+    import torch
+
+    from plslam_torch.models.tracking import fused_track_step
+    from plslam_torch.ops import hamming
+
+    c, s = np.cos(np.radians(20.0)), np.sin(np.radians(20.0))
+    args = list(tracker.dispatch_args())
+    args[7:10] = [torch.tensor([[c, 0, s], [0, 1, 0], [-s, 0, c]], dtype=torch.float32,
+                               device=dev),
+                  torch.tensor([0.4, 0.0, 0.0], device=dev), True]
+    gray, depth = tracker._quantize_inputs(*frame)
+    before = hamming.hamming_top2.launches
+    out = fused_track_step(cfg, torch.from_numpy(gray).to(dev),
+                           torch.from_numpy(depth.astype(np.int32)).to(dev), *args)
+    stats = out.stats.cpu().numpy()
+    calls = hamming.hamming_top2.launches - before
+    _, R, t = tracker.trajectory[-1]
+    dt = float(np.abs(out.t.cpu().numpy() - t).max())
+    require(stats[5] > 100 and stats[1] == stats[5],
+            f"rescue did not carry the frame: stats {stats.tolist()}")
+    require(calls == 4, f"{calls} hamming_top2 launches in a rescued step")
+    require(dt < 0.005, f"rescued pose {dt:.4f} m off the tracked one")
+    return dict(motion_matches=int(stats[0]), rescue_inliers=int(stats[5]),
+                local_inliers=int(stats[2]), hamming_launches=calls, pose_err_m=dt)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from plslam_torch.config import SlamConfig
+    from plslam_torch.geometry.projection import Camera
+    from plslam_torch.ops import cuda_build
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {kind}, torch {torch.__version__}, cuda {torch.version.cuda}")
+
+    t = cuda_build.build(verbose=True)
+    log(f"phase build: ok, {t:.1f} s for {len(cuda_build.KERNELS)} kernels")
+
+    cfg = SlamConfig(camera=Camera(fx=525.0, fy=525.0, cx=319.5, cy=239.5, bf=40.0))
+    t0 = time.perf_counter()
+    frames, poses = render_frames(cfg, N_FRAMES)
+    log(f"rendered {N_FRAMES} frames 640x480 in {time.perf_counter() - t0:.1f} s")
+
+    kernels = [check_fast(cfg, frames, dev), check_hamming(cfg, frames, dev)]
+    log("phase kernels: ok, both kernels exactly equal to their plain versions")
+
+    res = main_path(cfg, frames, poses, dev)
+    for k in kernels:
+        k["launches"] = res["launches"][k["name"]]
+    log("phase main: ok, " + json.dumps(res))
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

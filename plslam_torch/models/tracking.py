@@ -1,0 +1,1028 @@
+"""Frontend tracking: the per-frame state machine and its device step.
+
+The reference ``Tracking`` thread (Tracking.cc) as a host-side state
+machine around one device step per frame (``fused_track_step``), RGB-D:
+
+- Frame construction (Frame.cc RGB-D ctor — perception),
+- TrackWithMotionModel (:1212-1330) + UpdateLastFrame temporal landmarks
+  (:1044-1210, closest-100/45 caps) + the x2-radius retry (:1255-1259),
+- the TrackReferenceKeyFrame-equivalent rescue (:335-337, :942-1032),
+- TrackLocalMap (:1332-1420) + SearchLocalPoints/Lines (:1746-1865) +
+  IsInFrustum (Frame.cc:345-430), with joint point+line pose LM after each.
+
+Frame-to-frame state (previous FrameData, pose, velocity, landmark
+bindings) stays on the device; the host copies one small result record per
+frame. Local-map tensors are uploaded only when the keyframe set changes.
+
+Keyframe decision/creation follows NeedNewKeyFrame / CreateNewKeyFrame
+(:1423-1744, RGB-D branch): close-point bookkeeping, depth-sorted new
+landmark creation, line creation from endpoint depths.
+
+This module covers the configuration without local mapping
+(``local_mapper=None``): keyframes still mint landmarks from depth and the
+local map is still harvested from covisibility. Local mapping, loop
+closing, relocalization and the mono/stereo sensors are later parts of the
+port (ROADMAP.md, Queue A) and raise ``NotImplementedError`` here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import SlamConfig
+from ..geometry import lines as glines
+from ..geometry import projection as gproj
+from ..geometry import se3
+from ..ops import line_matching, matching
+from ..optim import pose as pose_opt
+from . import frame as mframe
+from .frame import FrameData
+from .map import HostFrame, SlamMap
+
+TH_HIGH = 100
+TH_LOW = 50
+
+
+def _inv_sigma2(octave, scale: float):
+    return (1.0 / scale**2) ** octave.float()
+
+
+def _project_points(cam, R, t, p3d):
+    pc = p3d @ R.T + t
+    z = pc[:, 2]
+    safe = torch.where(z.abs() > 1e-6, z, torch.full_like(z, 1e-6))
+    u = cam.fx * pc[:, 0] / safe + cam.cx
+    v = cam.fy * pc[:, 1] / safe + cam.cy
+    uv = torch.stack([u, v], -1)
+    in_img = (z > 0.05) & (u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height)
+    return uv, pc, in_img
+
+
+def _assemble_pose_obs(cfg, fd: FrameData, q_p3d, q_valid, pt_idx, pt_ok,
+                       ln_ep3d, ln_valid, ln_idx, ln_ok):
+    """Gather matched observations into fixed-shape PoseObs."""
+    scale = cfg.orb.scale_factor
+    idx = pt_idx.long().clamp(0, fd.kp_xy_un.shape[0] - 1)
+    lidx = ln_idx.long().clamp(0, fd.ln_ep_un.shape[0] - 1)
+    nw, vw = glines.plucker_from_endpoints(ln_ep3d[:, 0], ln_ep3d[:, 1])
+    return pose_opt.PoseObs(
+        p3d=q_p3d, uv=fd.kp_xy_un[idx], u_right=fd.kp_ur[idx],
+        inv_sigma2=_inv_sigma2(fd.kp_octave[idx], scale), valid=pt_ok & q_valid,
+        line_nw=nw, line_vw=vw, line_uv=fd.ln_ep_un[lidx],
+        line_inv_sigma2=torch.ones(ln_ep3d.shape[0], dtype=torch.float32,
+                                   device=ln_ep3d.device),
+        line_valid=ln_ok & ln_valid,
+    )
+
+
+def _scatter_set(n: int, idx, ok, src):
+    """out = full(n, -1); out[idx[ok]] = src[ok] (indices unique where ok).
+    Rows not ok land in a spare slot that is cut off: no host sync."""
+    out = torch.full((n + 1,), -1, dtype=torch.int32, device=src.device)
+    tgt = torch.where(ok, idx.long(), torch.full_like(idx, n, dtype=torch.int64))
+    return out.scatter_(0, tgt, src.to(torch.int32))[:n]
+
+
+# ===========================================================================
+# Step cores
+# ===========================================================================
+
+
+class MotionStepOut(NamedTuple):
+    R: torch.Tensor
+    t: torch.Tensor
+    pt_idx: torch.Tensor
+    pt_inlier: torch.Tensor
+    ln_idx: torch.Tensor
+    ln_inlier: torch.Tensor
+    n_pt_matches: torch.Tensor
+    n_inliers: torch.Tensor
+
+
+def _motion_core(cfg, fd, q_p3d, q_desc, q_octave, q_angle, q_valid,
+                 ln_ep3d, ln_desc, ln_valid, R_guess, t_guess) -> MotionStepOut:
+    cam = cfg.camera
+    scale = cfg.orb.scale_factor
+    uv_proj, _, in_img = _project_points(cam, R_guess, t_guess, q_p3d)
+    q_ok = q_valid & in_img
+    sf = scale ** q_octave.float()
+
+    def run_match(radius_mult):
+        radius = cfg.matcher.search_radius_motion * radius_mult * sf
+        gate = (
+            matching.window_gate(uv_proj, fd.kp_xy_un, radius)
+            & matching.octave_gate(q_octave, fd.kp_octave, -1, 1)
+            & q_ok[:, None]
+            & fd.kp_valid[None, :]
+        )
+        return matching.match_descriptors(
+            q_desc, fd.kp_desc, gate, TH_HIGH,
+            angle_q=q_angle, angle_t=fd.kp_angle,
+            histo_length=cfg.matcher.histo_length,
+        )
+
+    m1 = run_match(1.0)
+    m2 = run_match(2.0)
+    use_wide = m1.count < 20
+    m = matching.MatchResult(*(torch.where(use_wide, b, a) for a, b in zip(m1, m2)))
+
+    proj = line_matching.project_lines(cam, R_guess, t_guess, ln_ep3d, ln_valid)
+    lm = line_matching.match_lines(
+        proj, ln_desc, fd.ln_ep_un, fd.ln_angle, fd.ln_length,
+        fd.ln_desc, fd.ln_valid, cfg.lines,
+    )
+
+    obs = _assemble_pose_obs(cfg, fd, q_p3d, q_valid, m.idx, m.ok,
+                             ln_ep3d, ln_valid, lm.idx, lm.ok)
+    res = pose_opt.optimize_pose(cam, R_guess, t_guess, obs)
+    return MotionStepOut(
+        res.R, res.t, m.idx, m.ok & res.inlier_pts, lm.idx,
+        lm.ok & res.inlier_lines, m.count, res.n_inliers,
+    )
+
+
+class LocalStepOut(NamedTuple):
+    R: torch.Tensor
+    t: torch.Tensor
+    pt_idx: torch.Tensor      # (LM,) final matched feature per local map point
+    pt_inlier: torch.Tensor   # (LM,)
+    ln_idx: torch.Tensor
+    ln_inlier: torch.Tensor
+    pt_visible: torch.Tensor  # (LM,) frustum-visible mask (for found/visible)
+    n_inliers: torch.Tensor
+
+
+def _local_core(cfg, fd, lm_p3d, lm_desc, lm_normal, lm_mind, lm_maxd,
+                lm_valid, lm_pre_feat, lml_ep3d, lml_desc, lml_valid,
+                lml_pre_feat, R0, t0) -> LocalStepOut:
+    cam = cfg.camera
+    scale = cfg.orb.scale_factor
+    n_levels = cfg.orb.n_levels
+
+    uv_proj, pc, in_img = _project_points(cam, R0, t0, lm_p3d)
+    # IsInFrustum (Frame.cc:345-401): distance band + viewing angle
+    cam_center = -(R0.T @ t0)
+    po = lm_p3d - cam_center
+    dist = torch.linalg.vector_norm(po, dim=-1)
+    dist_ok = (dist >= 0.8 * lm_mind) & (dist <= 1.2 * lm_maxd)
+    view_cos = (po * lm_normal).sum(-1) / (
+        dist * torch.linalg.vector_norm(lm_normal, dim=-1)).clamp(min=1e-6)
+    view_ok = view_cos > 0.5
+    pre_matched = lm_pre_feat >= 0
+    # ALL visible points are re-matched (not only the ones the motion step
+    # left unbound): motion-step bindings were selected at a possibly biased
+    # pose, and freezing them feeds that bias forward
+    visible = lm_valid & in_img & dist_ok & view_ok
+
+    ratio = torch.log(lm_maxd.clamp(min=1e-6) / dist.clamp(min=1e-6))
+    pred_level = torch.ceil(ratio / float(np.log(np.float32(scale)))).to(torch.int32).clamp(0, n_levels - 1)
+    base_r = torch.where(view_cos > 0.998, 2.5, 4.0)
+    radius = cfg.matcher.search_radius_local * base_r * scale ** pred_level.float()
+
+    gate = (
+        matching.window_gate(uv_proj, fd.kp_xy_un, radius)
+        & matching.octave_gate(pred_level, fd.kp_octave, -1, 0)
+        & visible[:, None]
+        & fd.kp_valid[None, :]
+    )
+    m = matching.match_descriptors(
+        lm_desc, fd.kp_desc, gate, TH_HIGH,
+        nn_ratio=cfg.matcher.nn_ratio_tracking, dedupe=True,
+    )
+    # combine fresh matches with motion-step bindings, then RE-DEDUPE: the
+    # fallback can route several duplicate landmarks onto one feature
+    pt_idx = torch.where(m.ok, m.idx, lm_pre_feat)
+    pt_ok = m.ok | pre_matched
+    comb_dist = torch.where(m.ok, m.dist, torch.full_like(m.dist, 300))  # fresh wins ties
+    comb = matching.dedupe_targets(
+        matching._masked(pt_ok, pt_idx, comb_dist), fd.kp_desc.shape[0])
+    pt_idx, pt_ok = comb.idx, comb.ok
+
+    lproj = line_matching.project_lines(cam, R0, t0, lml_ep3d, lml_valid)
+    ln_pre = lml_pre_feat >= 0
+    lm_res = line_matching.match_lines(
+        lproj, lml_desc, fd.ln_ep_un, fd.ln_angle, fd.ln_length, fd.ln_desc,
+        fd.ln_valid, cfg.lines,
+    )
+    ln_idx = torch.where(lm_res.ok, lm_res.idx, lml_pre_feat)
+    ln_ok = lm_res.ok | ln_pre
+    ln_dist = torch.where(lm_res.ok, lm_res.dist, torch.full_like(lm_res.dist, 300))
+    lcomb = matching.dedupe_targets(
+        matching._masked(ln_ok, ln_idx, ln_dist), fd.ln_desc.shape[0])
+    ln_idx, ln_ok = lcomb.idx, lcomb.ok
+
+    obs = _assemble_pose_obs(cfg, fd, lm_p3d, lm_valid, pt_idx, pt_ok,
+                             lml_ep3d, lml_valid, ln_idx, ln_ok)
+    res = pose_opt.optimize_pose(cam, R0, t0, obs)
+    return LocalStepOut(
+        res.R, res.t, pt_idx, pt_ok & res.inlier_pts, ln_idx,
+        ln_ok & res.inlier_lines, visible | pre_matched, res.n_inliers,
+    )
+
+
+# ===========================================================================
+# Fused per-frame step
+# ===========================================================================
+
+
+class FusedOut(NamedTuple):
+    fd: FrameData                # stays on device as next frame's "prev"
+    R: torch.Tensor
+    t: torch.Tensor
+    R_vel: torch.Tensor
+    t_vel: torch.Tensor
+    feat_slot_pt: torch.Tensor   # (N,) local-map slot bound to each cur feature
+    feat_slot_ln: torch.Tensor   # (NL,)
+    lm_feat: torch.Tensor        # (LM,) matched cur feature per slot (-1)
+    lm_inlier: torch.Tensor      # (LM,)
+    lm_visible: torch.Tensor     # (LM,)
+    lml_feat: torch.Tensor       # (LL,)
+    lml_inlier: torch.Tensor
+    stats: torch.Tensor          # (6,) int32: [n_motion_matches,
+                                 # n_track_inliers (motion or rescue),
+                                 # n_local_inliers, tracked_close,
+                                 # creatable_close, n_rescue_inliers (0 when
+                                 # the rescue stage didn't fire/win)]
+
+
+def _kth_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
+    return torch.sort(x).values[k - 1]
+
+
+def fused_track_step(
+    cfg: SlamConfig,
+    gray: torch.Tensor,        # quantized gray (TrackingConfig.gray_wire_bits)
+    depth: torch.Tensor,       # depth map, integer depth_map_factor units
+    prev: FrameData,
+    prev_slot_pt: torch.Tensor,  # (N,) lm slot per prev feature or -1
+    prev_slot_ln: torch.Tensor,  # (NL,)
+    pt_remap: torch.Tensor,      # (LM,) old-slot -> current-slot (identity
+    ln_remap: torch.Tensor,      # (LL,)  when the local map didn't change)
+    R_prev: torch.Tensor,
+    t_prev: torch.Tensor,
+    R_vel: torch.Tensor,
+    t_vel: torch.Tensor,
+    has_vel: bool,
+    lm_p3d, lm_desc, lm_normal, lm_mind, lm_maxd, lm_valid,
+    lml_ep3d, lml_desc, lml_valid,
+) -> FusedOut:
+    cam = cfg.camera
+    dev = lm_p3d.device
+    LM = lm_p3d.shape[0]
+    LL = lml_ep3d.shape[0]
+    neg = lambda x: torch.full_like(x, -1)  # noqa: E731
+    prev_slot_pt = torch.where(
+        prev_slot_pt >= 0, pt_remap[prev_slot_pt.long().clamp(0, LM - 1)], neg(prev_slot_pt))
+    prev_slot_ln = torch.where(
+        prev_slot_ln >= 0, ln_remap[prev_slot_ln.long().clamp(0, LL - 1)], neg(prev_slot_ln))
+
+    fd = mframe.build_frame(gray, depth, cfg, quantized=True)
+
+    # velocity-model pose guess
+    Rg, tg = se3.compose(R_vel, t_vel, R_prev, t_prev) if has_vel else (R_prev, t_prev)
+
+    # ---- queries from the previous frame -------------------------------
+    Rwc = R_prev.T
+    c_prev = -(Rwc @ t_prev)
+    slot = prev_slot_pt.long().clamp(0, LM - 1)
+    bound = (prev_slot_pt >= 0) & lm_valid[slot]
+    p_map = lm_p3d[slot]
+    pc_prev = gproj.backproject(cam, prev.kp_xy_un, prev.kp_depth)
+    p_temp = pc_prev @ Rwc.T + c_prev
+    has_d = prev.kp_depth > 0
+    t_cand = prev.kp_valid & has_d & ~bound
+    # UpdateLastFrame (Tracking.cc:1044-1210): ALL close points (depth <
+    # ThDepth) become temporal candidates, with the closest-``cap`` as a
+    # floor when close points are scarce
+    cap = cfg.tracking.temporal_points_cap
+    dsel = torch.where(t_cand, prev.kp_depth, torch.full_like(prev.kp_depth, float("inf")))
+    kth = _kth_smallest(dsel, cap)
+    t_sel = t_cand & ((dsel <= kth) | (dsel <= cfg.tracking.th_depth))
+    q_p3d = torch.where(bound[:, None], p_map, p_temp)
+    q_valid = bound | t_sel
+
+    lslot = prev_slot_ln.long().clamp(0, LL - 1)
+    lbound = (prev_slot_ln >= 0) & lml_valid[lslot]
+    l_map = lml_ep3d[lslot]
+    l_temp = torch.stack(
+        [gproj.backproject(cam, prev.ln_ep_un[:, k], prev.ln_depth[:, k]) @ Rwc.T + c_prev
+         for k in (0, 1)],
+        dim=1,
+    )
+    lt_cand = prev.ln_valid & (prev.ln_depth > 0).all(1) & ~lbound
+    lcap = cfg.tracking.temporal_lines_cap
+    ldsel = torch.where(lt_cand, prev.ln_depth.amax(1),
+                        torch.full_like(prev.ln_depth[:, 0], float("inf")))
+    lkth = _kth_smallest(ldsel, lcap)
+    lt_sel = lt_cand & ((ldsel <= lkth) | (ldsel <= cfg.tracking.th_depth))
+    l_ep3d = torch.where(lbound[:, None, None], l_map, l_temp)
+    l_valid = lbound | lt_sel
+
+    # ---- motion step ----------------------------------------------------
+    mo = _motion_core(cfg, fd, q_p3d, prev.kp_desc, prev.kp_octave,
+                      prev.kp_angle, q_valid, l_ep3d, prev.ln_desc, l_valid,
+                      Rg, tg)
+
+    # ---- rescue step ----------------------------------------------------
+    # TrackReferenceKeyFrame equivalent (Tracking.cc:335-337,942-1032):
+    # when the motion stage starves, match the LOCAL MAP's descriptors
+    # against the whole frame with NO spatial window, then LM the pose from
+    # the LAST pose. One host branch per frame keeps it off the common path.
+    mo_n = int(mo.n_inliers)
+    use_rescue = False
+    r_n = 0
+    if mo_n < cfg.tracking.rescue_min_inliers:
+        gate = lm_valid[:, None] & fd.kp_valid[None, :]
+        m = matching.match_descriptors(
+            lm_desc, fd.kp_desc, gate, TH_LOW,
+            nn_ratio=cfg.matcher.nn_ratio_reloc, dedupe=True)
+        obs = _assemble_pose_obs(
+            cfg, fd, lm_p3d, lm_valid, m.idx, m.ok, lml_ep3d, lml_valid,
+            torch.zeros(LL, dtype=torch.int32, device=dev),
+            torch.zeros(LL, dtype=torch.bool, device=dev))
+        res = pose_opt.optimize_pose(cam, R_prev, t_prev, obs)
+        r_ok = m.ok & res.inlier_pts
+        r_n = int(res.n_inliers)
+        use_rescue = r_n > mo_n
+
+    # pre-bindings for the local step: slot -> matched cur feature
+    if use_rescue:
+        pre_feat = torch.where(r_ok, m.idx, torch.full_like(m.idx, -1))
+        lpre_feat = torch.full((LL,), -1, dtype=torch.int32, device=dev)
+        R_mid, t_mid, n_track = res.R, res.t, r_n
+    else:
+        pre_feat = _scatter_set(LM, slot, bound & mo.pt_inlier, mo.pt_idx)
+        lpre_feat = _scatter_set(LL, lslot, lbound & mo.ln_inlier, mo.ln_idx)
+        R_mid, t_mid, n_track = mo.R, mo.t, mo_n
+
+    # ---- local-map step -------------------------------------------------
+    lo = _local_core(cfg, fd, lm_p3d, lm_desc, lm_normal, lm_mind, lm_maxd,
+                     lm_valid, pre_feat, lml_ep3d, lml_desc, lml_valid,
+                     lpre_feat, R_mid, t_mid)
+    # trust the local-map refinement only when it has real support
+    use_local = lo.n_inliers >= cfg.tracking.min_inliers_local_map
+    R_fin = torch.where(use_local, lo.R, R_mid)
+    t_fin = torch.where(use_local, lo.t, t_mid)
+
+    ok_slot = lo.pt_inlier & (lo.pt_idx >= 0)
+    n = fd.kp_valid.shape[0]
+    lm_ids = torch.arange(LM, dtype=torch.int32, device=dev)
+    feat_slot_pt = _scatter_set(n, lo.pt_idx, ok_slot, lm_ids)
+    nl = fd.ln_valid.shape[0]
+    lok_slot = lo.ln_inlier & (lo.ln_idx >= 0)
+    feat_slot_ln = _scatter_set(nl, lo.ln_idx, lok_slot,
+                                torch.arange(LL, dtype=torch.int32, device=dev))
+
+    # velocity for next frame: T_cur ∘ T_prev^-1
+    Rpi, tpi = se3.inverse(R_prev, t_prev)
+    Rvn, tvn = se3.compose(R_fin, t_fin, Rpi, tpi)
+
+    # close-point stats for the keyframe decision (NeedNewKeyFrame)
+    close = fd.kp_valid & (fd.kp_depth > 0) & (fd.kp_depth < cfg.tracking.th_depth)
+    tracked_close = (close & (feat_slot_pt >= 0)).sum(dtype=torch.int32)
+    creatable_close = (close & (feat_slot_pt < 0)).sum(dtype=torch.int32)
+    i32 = lambda v: torch.as_tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+
+    return FusedOut(
+        fd=fd, R=R_fin, t=t_fin, R_vel=Rvn, t_vel=tvn,
+        feat_slot_pt=feat_slot_pt, feat_slot_ln=feat_slot_ln,
+        lm_feat=torch.where(ok_slot, lo.pt_idx, neg(lo.pt_idx)), lm_inlier=ok_slot,
+        lm_visible=lo.pt_visible,
+        lml_feat=torch.where(lok_slot, lo.ln_idx, neg(lo.ln_idx)), lml_inlier=lok_slot,
+        stats=torch.stack([
+            mo.n_pt_matches.to(torch.int32), i32(n_track),
+            lo.n_inliers.to(torch.int32), tracked_close, creatable_close,
+            i32(r_n if use_rescue else 0),
+        ]),
+    )
+
+
+def _to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
+    """Copy several device tensors to host numpy in ONE transfer: their
+    bytes are packed into one uint8 buffer on the device first."""
+    flat = [t.contiguous().reshape(-1) for t in tensors]
+    buf = torch.cat([f.view(torch.uint8) for f in flat]).cpu().numpy()
+    out, off = [], 0
+    for t, f in zip(tensors, flat):
+        nbytes = f.numel() * f.element_size()
+        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        out.append(buf[off:off + nbytes].view(dtype).reshape(tuple(t.shape)))
+        off += nbytes
+    return out
+
+
+# ===========================================================================
+# Host-side tracker
+# ===========================================================================
+
+NOT_INITIALIZED = 0
+OK = 1
+LOST = 2
+
+
+class Tracker:
+    """Host state machine driving the fused device step and the map."""
+
+    LM_CAP = 8192
+    LL_CAP = 512
+    # max frames between local-map harvests when no keyframe event fires
+    REFRESH_MAX_FRAMES = 12
+
+    def __init__(self, cfg: SlamConfig, slam_map: SlamMap, local_mapper=None,
+                 loop_closer=None, voc=None, kfdb=None, sensor: str = "rgbd"):
+        if sensor != "rgbd":
+            raise NotImplementedError(
+                f"sensor={sensor!r}: only RGB-D is ported (mono and stereo are "
+                "ROADMAP.md Queue A item 16)")
+        if local_mapper is not None:
+            raise NotImplementedError(
+                "local mapping is not ported yet (ROADMAP.md Queue A, slice 2)")
+        if loop_closer is not None or voc is not None or kfdb is not None:
+            raise NotImplementedError(
+                "loop closing / BoW are not ported yet (ROADMAP.md Queue A "
+                "items 11 and 13)")
+        self.cfg = cfg
+        self.map = slam_map
+        self.device = slam_map.device
+        self.sensor = sensor
+        self.local_mapper = None
+        self.loop_closer = None
+        self.voc = None
+        self.kfdb = None
+        self.state = NOT_INITIALIZED
+        self.frame_id = -1
+        self.last_kf_id = -1
+        self.last_kf = -1
+        self.ref_kf = -1
+        self.trajectory: list[tuple[float, np.ndarray, np.ndarray]] = []
+        self.n_lost_frames = 0
+        self.debug: dict = {}
+        dev = self.device
+        # device-resident state
+        self._prev_fd: FrameData | None = None
+        self._prev_slot_pt = None
+        self._prev_slot_ln = None
+        self._R = None
+        self._t = None
+        self._R_vel = torch.eye(3, dtype=torch.float32, device=dev)
+        self._t_vel = torch.zeros(3, dtype=torch.float32, device=dev)
+        self._has_vel = False
+        # cached local map (device tensors + host id tables)
+        self._lm_args = None
+        self._lp_ids = np.zeros(0, np.int32)
+        self._ll_ids = np.zeros(0, np.int32)
+        self._refresh_frame = -1  # frame id of the last local-map harvest
+        self._refresh_inl = 0     # inlier baseline at that harvest
+        # host mirrors for the current/last frame
+        self.last_pose: tuple[np.ndarray, np.ndarray] | None = None
+        self.last_pt_ids: np.ndarray | None = None
+        self.last_ln_ids: np.ndarray | None = None
+        # frames in flight before a result is retired (0 = auto = 1: a local
+        # device has no fetch latency to hide)
+        self.pipeline_depth = cfg.tracking.pipeline_depth or 1
+        self._queue: list[dict] = []
+        self._id_pt = torch.arange(self.LM_CAP, dtype=torch.int32, device=dev)
+        self._id_ln = torch.arange(self.LL_CAP, dtype=torch.int32, device=dev)
+        self._pt_remap = self._id_pt
+        self._ln_remap = self._id_ln
+        self._pt_remap_np = None
+        self._ln_remap_np = None
+
+    # ------------------------------------------------------------------ API
+    def process(self, gray: np.ndarray, depth: np.ndarray, timestamp: float):
+        """Track one RGB-D frame (uint8 or float gray; uint16 depth in
+        depth_map_factor units, or float metres).
+
+        Pipelined lag-1: returns the PREVIOUS frame's (R, t) world-to-camera
+        (or None). Call :meth:`flush` to drain the last in-flight frame."""
+        self.frame_id += 1
+        gray, depth = self._quantize_inputs(gray, depth)
+        gray = torch.from_numpy(gray).to(self.device)
+        depth = torch.from_numpy(depth.astype(np.int32)).to(self.device)
+        if self.state == NOT_INITIALIZED:
+            fd = mframe.build_frame(gray, depth, self.cfg, quantized=True)
+            if self._stereo_initialization(fd, timestamp):
+                self.state = OK
+                return self.last_pose
+            return None
+        if self.state == LOST:
+            self._prev_fd = mframe.build_frame(gray, depth, self.cfg, quantized=True)
+            if self._try_relocalize(timestamp):
+                return self.last_pose
+            # reference: reset if lost right after init (Tracking.cc:560-568)
+            if self.map.n_kf <= self.cfg.tracking.reset_if_lost_with_kfs_leq \
+                    and self.n_lost_frames > 20:
+                self.reset()
+            self.n_lost_frames += 1
+            return None
+        # OK: dispatch this frame, then retire the oldest in-flight one
+        out = self._dispatch(gray, depth)
+        result = None
+        if len(self._queue) >= self.pipeline_depth:
+            pending = self._queue.pop(0)
+            if self._finish(pending):
+                result = self.last_pose
+                self.n_lost_frames = 0
+            else:
+                # an old frame failed: every newer dispatch used its bad pose —
+                # discard them all, keep this frame's perception
+                self._queue.clear()
+                self.n_lost_frames += 1
+                self.state = LOST
+                self._prev_slot_pt = torch.full_like(self._prev_slot_pt, -1)
+                self._prev_slot_ln = torch.full_like(self._prev_slot_ln, -1)
+                self._has_vel = False
+                if self._try_relocalize(timestamp):
+                    return self.last_pose
+                return None
+        self._queue.append(dict(
+            out=out, timestamp=timestamp, frame_id=self.frame_id,
+            lp_ids=self._lp_ids, ll_ids=self._ll_ids,
+        ))
+        return result
+
+    def process_mono(self, gray, timestamp):
+        raise NotImplementedError("monocular tracking is ROADMAP.md Queue A item 16")
+
+    def process_stereo(self, gray_l, gray_r, timestamp):
+        raise NotImplementedError("stereo tracking is ROADMAP.md Queue A item 16")
+
+    def apply_gauge_correction(self, R_delta, t_delta):
+        raise NotImplementedError(
+            "gauge corrections come with loop closing (ROADMAP.md Queue A item 13)")
+
+    def flush(self):
+        """Drain all in-flight frames (call before reading the trajectory)."""
+        while self._queue:
+            pending = self._queue.pop(0)
+            if self._finish(pending):
+                self.n_lost_frames = 0
+            else:
+                self._queue.clear()
+                self.state = LOST
+                self.n_lost_frames += 1
+
+    def dispatch_args(self):
+        """The fused step's tensor arguments for this tracker's next frame
+        (minus the images)."""
+        return (self._prev_fd, self._prev_slot_pt, self._prev_slot_ln,
+                self._pt_remap, self._ln_remap,
+                self._R, self._t, self._R_vel, self._t_vel, self._has_vel,
+                *self._lm_args)
+
+    def _dispatch(self, gray, depth) -> FusedOut:
+        """Run the fused step and optimistically advance device state."""
+        out = fused_track_step(self.cfg, gray, depth, *self.dispatch_args())
+        self._pt_remap = self._id_pt
+        self._ln_remap = self._id_ln
+        self._pt_remap_np = None
+        self._ln_remap_np = None
+        self._prev_fd = out.fd
+        self._prev_slot_pt = out.feat_slot_pt
+        self._prev_slot_ln = out.feat_slot_ln
+        self._R = out.R
+        self._t = out.t
+        self._R_vel = out.R_vel
+        self._t_vel = out.t_vel
+        self._has_vel = True
+        return out
+
+    def _quantize_inputs(self, gray, depth):
+        """Reduce the inputs as the JAX package's tracker does — results
+        depend on it: ``gray_wire_bits`` gray (top bits) and HALF-RES uint16
+        depth (depth_map_factor units, 2x2 min-of-nonzero pool; depth is only
+        sampled at feature coordinates)."""
+        gray = np.asarray(gray)
+        depth = np.asarray(depth)
+        if gray.dtype != np.uint8:
+            gray = np.clip(gray, 0, 255).astype(np.uint8)
+        gbits = self.cfg.tracking.gray_wire_bits
+        if gbits < 8:
+            gray = gray >> (8 - gbits)
+        h, w = depth.shape
+        if depth.dtype != np.uint16:
+            f = self.cfg.tracking.depth_map_factor
+            depth = np.clip(depth * f, 0, 65535).astype(np.uint16)
+        if (h, w) == (self.cfg.camera.height, self.cfg.camera.width) \
+                and h % 2 == 0 and w % 2 == 0:
+            blocks = depth.reshape(h // 2, 2, w // 2, 2)
+            # min over nonzero values; 0 (no depth) only if all 4 are 0:
+            # uint16 wraparound maps 0 -> 65535 (loses every min), +1 back
+            depth = blocks - np.uint16(1)
+            depth = np.minimum(depth[:, 0], depth[:, 1])
+            depth = np.minimum(depth[..., 0], depth[..., 1])
+            depth += np.uint16(1)
+        return np.ascontiguousarray(gray), np.ascontiguousarray(depth)
+
+    def _try_relocalize(self, timestamp: float) -> bool:
+        """Relocalization against the keyframe database (Tracking.cc:2049).
+        Without a vocabulary and database there is nothing to query, exactly
+        as in the JAX package; the database path is not ported yet."""
+        if self.kfdb is None or self.voc is None:
+            return False
+        raise NotImplementedError(
+            "relocalization is not ported yet (ROADMAP.md Queue A item 10)")
+
+    def reset(self):
+        """Full system reset (Tracking::Reset, Tracking.cc:2271-2317)."""
+        self.map.reset()
+        self.state = NOT_INITIALIZED
+        self.last_kf_id = -1
+        self.last_kf = -1
+        self.ref_kf = -1
+        self.n_lost_frames = 0
+        self._has_vel = False
+        self._lm_args = None
+
+    def _record_pose(self, timestamp: float, R: np.ndarray, t: np.ndarray):
+        self.trajectory.append((timestamp, R.copy(), t.copy()))
+
+    # ------------------------------------------------------ initialization
+    def _stereo_initialization(self, fd: FrameData, timestamp: float) -> bool:
+        """Tracking::StereoInitialization (Tracking.cc:608-727)."""
+        host = HostFrame(fd)
+        n_depth = int(((host.kp_depth > 0) & host.kp_valid).sum())
+        if n_depth < 300:
+            return False
+        R = np.eye(3, dtype=np.float32)
+        t = np.zeros(3, np.float32)
+        kf = self.map.add_keyframe(host, R, t, self.frame_id, timestamp, fd_dev=fd)
+        pt_ids = self._create_landmarks_from_depth(
+            kf, host, R, t, np.full(host.kp_valid.shape, -1, np.int32),
+            close_only=False,
+        )
+        ln_ids = self._create_lines_from_depth(
+            kf, host, R, t, np.full(host.ln_valid.shape, -1, np.int32))
+        feats = np.nonzero(pt_ids >= 0)[0]
+        self.map.scatter_point_descs_from(fd.kp_desc, feats, pt_ids[feats])
+        lfeats = np.nonzero(ln_ids >= 0)[0]
+        self.map.scatter_line_descs_from(fd.ln_desc, lfeats, ln_ids[lfeats])
+        self.last_kf_id = self.frame_id
+        self.last_kf = kf
+        self.ref_kf = kf
+        self.last_pose = (R, t)
+        self.last_pt_ids = pt_ids
+        self.last_ln_ids = ln_ids
+        self._record_pose(timestamp, R, t)
+        # device state
+        self._prev_fd = fd
+        self._R = torch.as_tensor(R, device=self.device)
+        self._t = torch.as_tensor(t, device=self.device)
+        self._has_vel = False
+        self._refresh_local_map(pt_ids, ln_ids)
+        return True
+
+    # ------------------------------------------------------------- tracking
+    def _finish(self, pending: dict) -> bool:
+        """Retire a dispatched frame (bookkeeping + KF decision), from ONE
+        host copy of the fields it needs."""
+        cfg = self.cfg
+        out: FusedOut = pending["out"]
+        timestamp = pending["timestamp"]
+        frame_id = pending["frame_id"]
+        lp_ids = pending["lp_ids"]
+        ll_ids = pending["ll_ids"]
+        fd = out.fd
+        (stats, R, t, lm_feat, lm_inlier, lm_vis, lml_feat, lml_inlier,
+         kp_xy_un, kp_octave, kp_depth, kp_valid,
+         ln_ep_un, ln_desc, ln_depth, ln_valid) = _to_host([
+             out.stats, out.R, out.t, out.lm_feat, out.lm_inlier, out.lm_visible,
+             out.lml_feat, out.lml_inlier, fd.kp_xy_un, fd.kp_octave,
+             fd.kp_depth, fd.kp_valid, fd.ln_ep_un, fd.ln_desc, fd.ln_depth,
+             fd.ln_valid])
+        R = np.array(R)
+        t = np.array(t)
+        n_mm, n_mi, n_li, tc, cc, n_rs = (int(v) for v in stats)
+        self.debug = {
+            "motion_matches": n_mm, "motion_inliers": n_mi,
+            "local_inliers": n_li, "local_points": len(lp_ids),
+            "rescue_inliers": n_rs,
+        }
+        n_in = n_li
+        if not (n_mi >= 10 and n_in >= cfg.tracking.min_inliers_local_map):
+            return False
+
+        # host bookkeeping (ids resolved against the DISPATCH-time snapshot)
+        k = len(lp_ids)
+        lm_inlier = lm_inlier.copy()
+        lm_inlier[k:] = False
+        vis = lm_vis.copy()
+        vis[k:] = False
+        self.map.pt_visible[lp_ids[vis[:k]]] += 1
+        self.map.pt_found[lp_ids[lm_inlier[:k]]] += 1
+        cur_pt_ids = np.full(cfg.orb.max_keypoints, -1, np.int32)
+        sel = np.nonzero(lm_inlier[:k])[0]
+        cur_pt_ids[lm_feat[sel]] = lp_ids[sel]
+        kl = len(ll_ids)
+        lml_inlier = lml_inlier.copy()
+        lml_inlier[kl:] = False
+        cur_ln_ids = np.full(cfg.lines.max_lines, -1, np.int32)
+        lsel = np.nonzero(lml_inlier[:kl])[0]
+        cur_ln_ids[lml_feat[lsel]] = ll_ids[lsel]
+        self.map.ln_visible[ll_ids[lsel]] += 1
+        self.map.ln_found[ll_ids[lsel]] += 1
+
+        self.last_pose = (R, t)
+        self.last_pt_ids = cur_pt_ids
+        self.last_ln_ids = cur_ln_ids
+        self._record_pose(timestamp, R, t)
+
+        need = self._need_new_keyframe(tc, cc, n_in, frame_id=frame_id)
+        if need:
+            host = _host_frame(cfg, kp_xy_un, kp_octave, kp_depth, kp_valid,
+                               ln_ep_un, ln_desc, ln_depth, ln_valid)
+            self._create_new_keyframe(fd, R, t, cur_pt_ids, cur_ln_ids, timestamp,
+                                      frame_id=frame_id, host=host)
+            self._refresh_inl = n_in
+        elif (frame_id - self._refresh_frame >= self.REFRESH_MAX_FRAMES
+              or n_in < 0.5 * self._refresh_inl):
+            # the reference re-harvests the local map EVERY frame
+            # (UpdateLocalKeyFrames, Tracking.cc:1867-2035); a bounded
+            # cadence + inlier-decay trigger is the pipelined equivalent
+            self._refresh_local_map(cur_pt_ids, cur_ln_ids, rebind=False)
+            self._refresh_inl = n_in
+        return True
+
+    # --------------------------------------------------- local map handling
+    def _refresh_local_map(self, cur_pt_ids, cur_ln_ids, rebind: bool = True):
+        """Harvest the covisibility-local map and upload device tensors
+        (UpdateLocalKeyFrames/Points/Lines, Tracking.cc:1867-2035).
+
+        ``rebind=True`` (init) rewrites the device feature→slot tables from
+        ``cur_*_ids``. ``rebind=False`` (keyframe events) instead uploads
+        old-slot→new-slot remap vectors: the in-flight frame was dispatched
+        against the OLD slot space and its slot tables are reconciled inside
+        the next fused step."""
+        old_lp = self._lp_ids
+        old_ll = self._ll_ids
+        self._refresh_frame = self.frame_id
+        lkfs = self._local_keyframes(cur_pt_ids)
+        lp_ids, ll_ids = self._local_landmarks(lkfs)
+        self._lp_ids = lp_ids
+        self._ll_ids = ll_ids
+        m = self.map
+        dev = self.device
+        LM, LL = self.LM_CAP, self.LL_CAP
+        k = len(lp_ids)
+        p3d = np.zeros((LM, 3), np.float32)
+        normal = np.zeros((LM, 3), np.float32)
+        mind = np.zeros(LM, np.float32)
+        maxd = np.zeros(LM, np.float32)
+        valid = np.zeros(LM, bool)
+        pid_pad = np.zeros(LM, np.int64)
+        p3d[:k] = m.pt_pos[lp_ids]
+        normal[:k] = m.pt_normal[lp_ids]
+        mind[:k] = m.pt_min_dist[lp_ids]
+        maxd[:k] = m.pt_max_dist[lp_ids]
+        valid[:k] = True
+        pid_pad[:k] = lp_ids
+        kl = len(ll_ids)
+        lep = np.zeros((LL, 2, 3), np.float32)
+        lvalid = np.zeros(LL, bool)
+        lid_pad = np.zeros(LL, np.int64)
+        lep[:kl] = m.ln_ep[ll_ids]
+        lvalid[:kl] = True
+        lid_pad[:kl] = ll_ids
+        # descriptors are gathered from the device arenas by id — the
+        # descriptor bytes never leave the device
+        desc = m.point_desc_arena()[torch.as_tensor(pid_pad, device=dev)]
+        ldesc = m.line_desc_arena()[torch.as_tensor(lid_pad, device=dev)]
+        up = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        self._lm_args = (up(p3d), desc, up(normal), up(mind), up(maxd), up(valid),
+                         up(lep), ldesc, up(lvalid))
+        # id -> slot lookup tables
+        slot_lut_pt = np.full(m.pt_pos.shape[0], -1, np.int32)
+        slot_lut_pt[lp_ids] = np.arange(len(lp_ids), dtype=np.int32)
+        slot_lut_ln = np.full(m.ln_ep.shape[0], -1, np.int32)
+        slot_lut_ln[ll_ids] = np.arange(len(ll_ids), dtype=np.int32)
+        if rebind:
+            fs = np.where(cur_pt_ids >= 0, slot_lut_pt[np.clip(cur_pt_ids, 0, None)], -1)
+            fsl = np.where(cur_ln_ids >= 0, slot_lut_ln[np.clip(cur_ln_ids, 0, None)], -1)
+            self._prev_slot_pt = up(fs.astype(np.int32))
+            self._prev_slot_ln = up(fsl.astype(np.int32))
+            self._pt_remap = self._id_pt
+            self._ln_remap = self._id_ln
+            self._pt_remap_np = None
+            self._ln_remap_np = None
+        else:
+            # old-slot -> new-slot remaps for the in-flight frames
+            rm = np.full(self.LM_CAP, -1, np.int32)
+            if len(old_lp):
+                rm[: len(old_lp)] = slot_lut_pt[old_lp]
+            rml = np.full(self.LL_CAP, -1, np.int32)
+            if len(old_ll):
+                rml[: len(old_ll)] = slot_lut_ln[old_ll]
+            # compose with a not-yet-consumed remap
+            if self._pt_remap_np is not None:
+                prev = self._pt_remap_np
+                rm = np.where(prev >= 0, rm[np.clip(prev, 0, None)], -1)
+            if self._ln_remap_np is not None:
+                prev = self._ln_remap_np
+                rml = np.where(prev >= 0, rml[np.clip(prev, 0, None)], -1)
+            self._pt_remap_np = rm
+            self._ln_remap_np = rml
+            self._pt_remap = up(rm)
+            self._ln_remap = up(rml)
+
+    def _local_keyframes(self, cur_pt_ids: np.ndarray) -> list[int]:
+        """KFs observing current points + covisible neighbors (cap 80)."""
+        m = self.map
+        cur = cur_pt_ids[cur_pt_ids >= 0]
+        counts: dict[int, int] = {}
+        if len(cur) and m.n_kf:
+            lut = np.zeros(m.pt_pos.shape[0], bool)
+            lut[cur] = True
+            sub = m.kf_pt_idx[: m.n_kf]
+            mask = (sub >= 0) & lut[np.clip(sub, 0, None)]
+            carr = mask.sum(1)
+            nz = np.nonzero(carr)[0]
+            counts = {int(o): int(carr[o]) for o in nz}
+        if not counts:
+            return [self.ref_kf] if self.ref_kf >= 0 else []
+        k1 = sorted(counts, key=counts.get, reverse=True)
+        self.ref_kf = k1[0]
+        out = list(k1)
+        seen = set(out)
+        depth = {kf: 0 for kf in out}
+        # depth-2 BFS over covisibility neighbors + spanning-tree
+        # parent/children (UpdateLocalKeyFrames, Tracking.cc:1966-2025)
+        i = 0
+        while i < len(out) and len(out) < self.cfg.tracking.local_map_kf_cap:
+            kf = out[i]
+            i += 1
+            if depth[kf] >= 2:
+                continue
+            neigh = list(m.covisible_keyframes(kf, 10))
+            p = int(m.kf_parent[kf])
+            if p >= 0 and m.kf_valid[p]:
+                neigh.append(p)
+            neigh.extend(c for c in m.kf_children[kf] if m.kf_valid[c])
+            for nkf in neigh:
+                if nkf not in seen:
+                    out.append(nkf)
+                    seen.add(nkf)
+                    depth[nkf] = depth[kf] + 1
+        return out[: self.cfg.tracking.local_map_kf_cap]
+
+    def _local_landmarks(self, lkfs: list[int]):
+        if not lkfs:
+            return np.zeros(0, np.int32), np.zeros(0, np.int32)
+        pts = np.unique(self.map.kf_pt_idx[lkfs])
+        pts = pts[(pts >= 0) & self.map.pt_valid[np.clip(pts, 0, None)]]
+        lns = np.unique(self.map.kf_ln_idx[lkfs])
+        lns = lns[(lns >= 0) & self.map.ln_valid[np.clip(lns, 0, None)]]
+        return (pts[: self.LM_CAP].astype(np.int32),
+                lns[: self.LL_CAP].astype(np.int32))
+
+    # -------------------------------------------------------- keyframe logic
+    def _need_new_keyframe(self, tracked_close, creatable_close, n_inliers,
+                           frame_id: int | None = None):
+        """NeedNewKeyFrame RGB-D branch (Tracking.cc:1423-1557)."""
+        if frame_id is None:
+            frame_id = self.frame_id
+        cfg = self.cfg.tracking
+        need_close = (tracked_close < 100) and (creatable_close > 70)
+        min_obs = 2 if self.map.n_kf <= 2 else 3
+        ref_tracked = 1
+        ref = self.ref_kf
+        if ref >= 0 and not self.map.kf_valid[ref]:
+            ref = max((q for q in range(self.map.n_kf) if self.map.kf_valid[q]),
+                      default=-1)
+            self.ref_kf = ref
+        if ref >= 0:
+            pids = self.map.kf_pt_idx[ref]
+            pids = pids[pids >= 0]
+            cnt = sum(1 for p in pids if len(self.map.pt_obs[p]) >= min_obs)
+            ref_tracked = max(cnt if cnt > 0 else len(pids), 1)
+        c1a = frame_id >= self.last_kf_id + cfg.max_frames_between_kf
+        c1b = frame_id >= self.last_kf_id + max(cfg.min_frames_between_kf, 1)
+        c1c = (n_inliers < ref_tracked * 0.25) or need_close
+        c2 = ((n_inliers < ref_tracked * 0.75) or need_close) and n_inliers > 15
+        return bool((c1a or c1b or c1c) and c2)
+
+    def _create_new_keyframe(self, fd: FrameData, R, t, cur_pt_ids,
+                             cur_ln_ids, ts, frame_id: int | None = None,
+                             host: HostFrame | None = None):
+        """CreateNewKeyFrame (Tracking.cc:1567-1744)."""
+        if frame_id is None:
+            frame_id = self.frame_id
+        if host is None:
+            host = HostFrame(fd)
+        kf = self.map.add_keyframe(host, R, t, frame_id, ts, fd_dev=fd)
+        for feat, pid in enumerate(cur_pt_ids):
+            if pid >= 0 and self.map.pt_valid[pid]:
+                self.map.add_point_obs(int(pid), kf, feat)
+        for feat, lid in enumerate(cur_ln_ids):
+            if lid >= 0 and self.map.ln_valid[lid]:
+                self.map.add_line_obs(int(lid), kf, feat)
+        new_pt = self._create_landmarks_from_depth(kf, host, R, t, cur_pt_ids,
+                                                   close_only=True)
+        cur_pt_ids = cur_pt_ids.copy()
+        cur_pt_ids[new_pt >= 0] = new_pt[new_pt >= 0]
+        new_ln = self._create_lines_from_depth(kf, host, R, t, cur_ln_ids)
+        cur_ln_ids = cur_ln_ids.copy()
+        cur_ln_ids[new_ln >= 0] = new_ln[new_ln >= 0]
+        # new landmarks take their descriptors straight from the keyframe's
+        # device FrameData
+        feats = np.nonzero(new_pt >= 0)[0]
+        self.map.scatter_point_descs_from(fd.kp_desc, feats, new_pt[feats])
+        lfeats = np.nonzero(new_ln >= 0)[0]
+        self.map.scatter_line_descs_from(fd.ln_desc, lfeats, new_ln[lfeats])
+        self.last_kf_id = frame_id
+        self.last_kf = kf
+        self.ref_kf = kf
+        self.last_pt_ids = cur_pt_ids
+        self.last_ln_ids = cur_ln_ids
+        self._refresh_local_map(cur_pt_ids, cur_ln_ids, rebind=False)
+
+    def _create_landmarks_from_depth(self, kf, host, R, t, cur_pt_ids,
+                                     close_only: bool) -> np.ndarray:
+        """New map points from depth, closest-first; close ones always, far
+        ones only up to the 100-point floor (Tracking.cc:1630-1700)."""
+        cfg = self.cfg
+        out = np.full(host.kp_valid.shape, -1, np.int32)
+        cand = host.kp_valid & (host.kp_depth > 0) & (cur_pt_ids < 0)
+        idxs = np.nonzero(cand)[0]
+        if len(idxs) == 0:
+            return out
+        order = idxs[np.argsort(host.kp_depth[idxs])]
+        n_existing = int((cur_pt_ids >= 0).sum())
+        Rwc = R.T
+        c = -Rwc @ t
+        uv = host.kp_xy_un[order]
+        d = host.kp_depth[order]
+        pc = _backproject_np(cfg.camera, uv, d)
+        pw = pc @ Rwc.T + c
+        dist = np.linalg.norm(pw - c, axis=1)
+        level = host.kp_octave[order]
+        max_d = dist * cfg.orb.scale_factor**level
+        min_d = max_d / cfg.orb.scale_factor ** (cfg.orb.n_levels - 1)
+        normal = (pw - c) / np.maximum(dist[:, None], 1e-6)
+        created = 0
+        for j, feat in enumerate(order):
+            if close_only and d[j] > cfg.tracking.th_depth and (
+                    n_existing + created >= 100):
+                break
+            pid = self.map.add_point(pw[j], None, normal[j], min_d[j], max_d[j], kf)
+            self.map.add_point_obs(pid, kf, int(feat))
+            out[feat] = pid
+            created += 1
+        return out
+
+    def _create_lines_from_depth(self, kf, host, R, t, cur_ln_ids) -> np.ndarray:
+        """New map lines from endpoint depths (Tracking.cc:1700-1735)."""
+        cfg = self.cfg
+        out = np.full(host.ln_valid.shape, -1, np.int32)
+        cand = (
+            host.ln_valid
+            & (host.ln_depth > 0).all(1)
+            & (host.ln_depth < cfg.tracking.th_depth * 2).all(1)
+            & (cur_ln_ids < 0)
+        )
+        Rwc = R.T
+        c = -Rwc @ t
+        feats = np.nonzero(cand)[0]
+        if len(feats):
+            pc = _backproject_np(cfg.camera, host.ln_ep_un[feats].reshape(-1, 2),
+                                 host.ln_depth[feats].reshape(-1))
+            ep_w = (pc @ Rwc.T + c).reshape(-1, 2, 3).astype(np.float32)
+            for i, feat in enumerate(feats):
+                lid = self.map.add_line(ep_w[i], None, kf)
+                self.map.add_line_obs(lid, kf, int(feat))
+                out[feat] = lid
+        return out
+
+
+def _host_frame(cfg, kp_xy_un, kp_octave, kp_depth, kp_valid,
+                ln_ep_un, ln_desc, ln_depth, ln_valid) -> HostFrame:
+    """Keyframe snapshot from the per-frame host record. Derived fields are
+    recomputed (kp_ur from xy_un+depth, the formula build_frame uses);
+    fields with no host consumer (descriptors, responses, angles, raw
+    coords, ln_coeff) are zero-filled — the device holds the real values."""
+    cam = cfg.camera
+    n = kp_valid.shape[0]
+    nl = ln_valid.shape[0]
+    has_d = kp_depth > 0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ur = np.where(has_d, kp_xy_un[:, 0] - cam.bf / np.where(
+            has_d, kp_depth, 1.0), -1.0).astype(np.float32)
+    z = np.zeros
+    return HostFrame(FrameData(
+        kp_xy=kp_xy_un, kp_xy_un=kp_xy_un, kp_resp=z(n, np.float32),
+        kp_octave=kp_octave.astype(np.int32), kp_angle=z(n, np.float32),
+        kp_desc=z((n, 32), np.uint8), kp_depth=kp_depth, kp_ur=ur,
+        kp_valid=kp_valid,
+        ln_ep=ln_ep_un, ln_ep_un=ln_ep_un, ln_angle=z(nl, np.float32),
+        ln_length=np.linalg.norm(ln_ep_un[:, 1] - ln_ep_un[:, 0], axis=-1).astype(np.float32),
+        ln_coeff=z((nl, 3), np.float32), ln_desc=ln_desc,
+        ln_depth=ln_depth, ln_valid=ln_valid,
+    ))
+
+
+def _backproject_np(cam, uv: np.ndarray, depth: np.ndarray) -> np.ndarray:
+    x = (uv[:, 0] - cam.cx) / cam.fx
+    y = (uv[:, 1] - cam.cy) / cam.fy
+    return np.stack([x * depth, y * depth, depth], -1).astype(np.float32)
