@@ -9,7 +9,9 @@ Phases, one line each:
                call, eager and replayed from a CUDA graph (the device's own
                time), beside the plain version's, a library yardstick and
                the bound (the least time the card could take for the same
-               work).
+               work): FAST as one launch for the 8 pyramid levels and each
+               level alone, Hamming on windowed, 10%, dense and mixed gates
+               with the count of tiles that took the tensor cores.
   3. main    — the 150-frame synthetic room (640x480 RGB-D, points+lines)
                through plslam_torch's Tracker with local_mapper=None, with
                the launch counts that prove both kernels ran on the path,
@@ -36,16 +38,28 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-# H100 SXM peaks: the HBM3 rate (NVIDIA data sheet); fp32 instructions that
-# are not fused multiply-adds (sub, min, max) issue at half the data sheet's
-# FMA-counted 67 TFLOP/s; __popc issues 16 per clock per SM on compute
-# capability 9.0 (CUDA C++ programming guide, arithmetic instruction
-# throughput), on 132 SMs at the 1.98 GHz boost clock
+# H100 SXM peaks: the HBM3 rate and the int8 tensor-core rate (NVIDIA data
+# sheet); fp32 instructions that are not fused multiply-adds (sub, compare)
+# issue at half the data sheet's FMA-counted 67 TFLOP/s, and fp32 min/max at
+# half that again (64 per clock per SM: python -m plslam_torch.utils.mma_rate);
+# __popc issues 16 per clock per SM on compute capability 9.0 (CUDA C++
+# programming guide, arithmetic instruction throughput), on 132 SMs at the
+# 1.98 GHz boost clock
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12 / 2
-POPC_OPS_S = 132 * 16 * 1.98e9
-FAST_OPS_PER_PX = 185  # 16 sub, 2 x (64 min + 15 max) arcs, 1 max, 1 threshold, 9 NMS
-POPC_PER_PAIR = 8  # one per 32-bit word of a 256-bit descriptor
+MINMAX_OPS_S = FP32_OPS_S / 2
+INT8_TC_OPS_S = 1979e12
+POPC_OPS_S = 132 * 16 * 1.98e9  # bounds only the sparse walk's per-pair cost
+# FAST: every pixel costs the compass pre-test (4 sub, 8 compares, 8 and/or)
+# and the 3x3 NMS, separable: a 3-wide row max then a 3-high max of those
+# (4 max), and 1 compare; each side (bright, dark) that passes the
+# pre-test costs the best of its 16 arc minima, 63 min/max when neighbouring
+# arcs share their 7 common points (32 for 8 windows of 7, 3 a pair, 7 for
+# the max), 1 sub and 1 compare
+FAST_OPS_PER_PX, FAST_MINMAX_PER_PX = 21, 4
+FAST_OPS_PER_SIDE, FAST_MINMAX_PER_SIDE = 2, 63
+HAMMING_OPS_PER_PAIR = 2 * 256  # multiply-adds on unpacked bits
+POPC_PER_PAIR = 8  # the sparse walk: one per 32-bit word of a descriptor
 # the TPU kernels the CUDA kernels replace: the pl.pallas_call in the JAX
 # package's module
 REPLACES = {"fast_score_nms": "ops/pallas_fast.py:120",
@@ -147,8 +161,38 @@ def render_frames(cfg, n):
     return frames, poses
 
 
+def pretest_sides(img, th):
+    """Bright and dark sides of the pixels 3 px inside ``img`` that pass
+    FAST's compass pre-test (an adjacent pair of the 4 compass points beyond
+    +-th on that side): the arcs the kernel evaluates."""
+    import torch
+
+    h, w = img.shape
+    c = img[3:h - 3, 3:w - 3]
+    d = [img[6:h, 3:w - 3] - c, img[3:h - 3, 6:w] - c,      # compass 0 (dy=3), 4 (dx=3)
+         img[0:h - 6, 3:w - 3] - c, img[3:h - 3, 0:w - 6] - c]  # 8 (dy=-3), 12 (dx=-3)
+    bright = torch.zeros_like(c, dtype=torch.bool)
+    dark = torch.zeros_like(bright)
+    for k in range(4):
+        a, b = d[k], d[(k + 1) % 4]
+        bright |= (a > th) & (b > th)
+        dark |= (a < -th) & (b < -th)
+    return int(bright.sum()) + int(dark.sum())
+
+
+def fast_bound(npx, nsides):
+    """(ms, what binds) for FAST on ``npx`` pixels with ``nsides`` passing
+    sides: bytes read and written once against the operations, min/max
+    counted at their half issue rate."""
+    ops = (FAST_OPS_PER_PX * npx + FAST_OPS_PER_SIDE * nsides
+           + (FAST_MINMAX_PER_PX * npx + FAST_MINMAX_PER_SIDE * nsides)
+           * FP32_OPS_S / MINMAX_OPS_S)
+    return bound(8 * npx, ops, FP32_OPS_S)
+
+
 def check_fast(cfg, frames, dev):
-    """Kernel vs plain at all 8 pyramid levels of rendered frames."""
+    """Kernel vs plain at all 8 pyramid levels of rendered frames: the whole
+    pyramid in one launch, and each level alone."""
     import torch
 
     from plslam_torch.ops import fast, image
@@ -157,46 +201,58 @@ def check_fast(cfg, frames, dev):
     err = 0.0
     res = dict(name="fast_score_nms", route="cuda",
                source="plslam_torch/csrc/fast_score_nms.cu",
-               replaces=REPLACES["fast_score_nms"], ms=0.0, device_ms=0.0,
-               plain_ms=0.0, plain_device_ms=0.0, bound_ms=0.0, library_ms=None,
-               library_device_ms=None)
-    shapes = []
+               replaces=REPLACES["fast_score_nms"], library_ms=None, library_device_ms=None)
     for k in (0, 40, 80):
         g = frames[k][0]
         g = ((g >> 2) << 2) + 2  # the tracker's 6-bit gray, half-step restored
         img = torch.as_tensor(g, device=dev).float()
         levels = image.build_pyramid(img, cfg.orb.n_levels, cfg.orb.scale_factor)
-        for lvl in levels:
+        before = fast.fast_score_nms.launches
+        batched = fast.fast_score_nms_levels(levels, th)
+        require(fast.fast_score_nms.launches == before + 1,
+                "fast_score_nms_levels made more than one launch for 8 levels")
+        for lvl, got_all in zip(levels, batched):
             got = fast.fast_score_nms(lvl, th)
             want = fast.fast_score_nms_plain(lvl, th)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"fast_score_nms differs at {tuple(lvl.shape)}: "
-                                     f"{(got != want).sum().item()} pixels")
-            err = max(err, float((got - want).abs().max()))
-            if k == 0:
-                h, w = lvl.shape
-                shapes.append((h, w))
-                t_k, d_k = timings(lambda: fast.fast_score_nms(lvl, th))
-                t_p, d_p = timings(lambda: fast.fast_score_nms_plain(lvl, th))
-                b, by = bound(8 * h * w, FAST_OPS_PER_PX * h * w, FP32_OPS_S)
-                log(f"  fast_score_nms {h}x{w}: kernel {t_k:.4f} ms (device "
-                    f"{d_k:.4f}), plain {t_p:.4f} ms (device {d_p:.4f}), bound "
-                    f"{b * 1e3:.3f} us ({by})")
-                for key, v in (("ms", t_k), ("device_ms", d_k), ("plain_ms", t_p),
-                               ("plain_device_ms", d_p), ("bound_ms", b)):
-                    res[key] += v
-    npx = sum(h * w for h, w in shapes)
-    _, by = bound(8 * npx, FAST_OPS_PER_PX * npx, FP32_OPS_S)
-    res.update(max_abs_err=err, bound_by=by, shapes="8 pyramid levels, "
-               + ", ".join(f"{h}x{w}" for h, w in shapes))
+            for what, x in (("batched", got_all), ("alone", got)):
+                if not torch.equal(x, want):
+                    raise AssertionError(f"fast_score_nms ({what}) differs at "
+                                         f"{tuple(lvl.shape)}: "
+                                         f"{(x != want).sum().item()} pixels")
+                err = max(err, float((x - want).abs().max()))
+        if k:
+            continue
+        npx = nsides = 0
+        for lvl in levels:
+            h, w = lvl.shape
+            n_s = pretest_sides(lvl, th)
+            npx, nsides = npx + h * w, nsides + n_s
+            t_k, d_k = timings(lambda: fast.fast_score_nms(lvl, th))
+            t_p, d_p = timings(lambda: fast.fast_score_nms_plain(lvl, th))
+            b, by = fast_bound(h * w, n_s)
+            log(f"  fast_score_nms {h}x{w} alone: {n_s} sides of {h * w} px pass the "
+                f"pre-test; kernel {t_k:.4f} ms (device {d_k:.4f}), plain {t_p:.4f} ms "
+                f"(device {d_p:.4f}), bound {b * 1e3:.3f} us ({by})")
+        t_k, d_k = timings(lambda: fast.fast_score_nms_levels(levels, th))
+        t_p, d_p = timings(lambda: [fast.fast_score_nms_plain(x, th) for x in levels])
+        b, by = fast_bound(npx, nsides)
+        shapes = ", ".join(f"{h}x{w}" for h, w in (x.shape for x in levels))
+        log(f"  fast_score_nms_levels, 8 levels in one launch ({npx} px, {nsides} sides "
+            f"pass the pre-test): kernel {t_k:.4f} ms (device {d_k:.4f}), plain "
+            f"{t_p:.4f} ms (device {d_p:.4f}), bound {b * 1e3:.3f} us ({by})")
+        res.update(ms=t_k, device_ms=d_k, plain_ms=t_p, plain_device_ms=d_p, bound_ms=b,
+                   bound_by=by, pixels=npx, pretest_sides=nsides,
+                   shapes=f"8 pyramid levels in one launch: {shapes}")
+    res["max_abs_err"] = err
     return res
 
 
 def check_hamming(cfg, frames, dev):
     """Kernel vs plain at the motion shape, the local-map shape with a
-    windowed gate, the rescue's dense gate at the local-map shape, and a
-    ragged shape with planted ties."""
+    windowed gate, the same at a uniform 10% density (every tile on the
+    sparse walk), the rescue's dense gate, a mixed gate (a dense band of
+    1024 rows, the rest windowed), and a ragged shape with planted ties."""
     import torch
 
     from plslam_torch.models import frame as mframe
@@ -208,6 +264,7 @@ def check_hamming(cfg, frames, dev):
                             torch.as_tensor(d.astype(np.int32), device=dev), cfg)
     t_desc = fd.kp_desc
     t_uv = fd.kp_xy_un
+    kp_valid = fd.kp_valid[None, :]
     cases = {}
     # motion match: previous-frame queries vs this frame, 15 px windows
     q_uv = t_uv + torch.as_tensor(rng.normal(0, 4, (1024, 2)), dtype=torch.float32, device=dev)
@@ -215,18 +272,25 @@ def check_hamming(cfg, frames, dev):
     flip = torch.as_tensor(rng.random((1024, 32)) < 0.05, device=dev)
     q = torch.where(flip, q ^ 0x10, q)
     win = ((q_uv[:, None] - t_uv[None]).abs() < 15.0).all(-1)
-    cases["1024x1024"] = (q, t_desc, win & fd.kp_valid[None, :])
+    cases["1024x1024"] = (q, t_desc, win & kp_valid, False)
     # local map: 8192 landmarks spread over the image, 12 px windows
     lm_uv = torch.as_tensor(rng.uniform([0, 0], [640, 480], (8192, 2)),
                             dtype=torch.float32, device=dev)
     lm = torch.as_tensor(rng.integers(0, 256, (8192, 32), dtype=np.uint8), device=dev)
     lm[:1024] = q  # a realistic share of near-duplicate descriptors
-    win = ((lm_uv[:, None] - t_uv[None]).abs() < 12.0).all(-1)
-    cases["8192x1024"] = (lm.contiguous(), t_desc, win & fd.kp_valid[None, :])
+    lm = lm.contiguous()
+    windowed = ((lm_uv[:, None] - t_uv[None]).abs() < 12.0).all(-1) & kp_valid
+    cases["8192x1024"] = (lm, t_desc, windowed, False)
+    # the sparse walk's cost per pair: ~10% of the pairs, below the dense
+    # threshold in every 16 x 512 tile
+    cases["8192x1024 10%"] = (lm, t_desc, torch.as_tensor(
+        rng.random((8192, 1024)) < 0.1, device=dev) & kp_valid, False)
     # rescue: the full local map against every keypoint, no window
     # (lm_valid x kp_valid, here with every slot of the local map filled)
-    cases["8192x1024 dense"] = (lm.contiguous(), t_desc,
-                                fd.kp_valid[None, :].expand(8192, -1).contiguous())
+    cases["8192x1024 dense"] = (lm, t_desc, kp_valid.expand(8192, -1).contiguous(), True)
+    mixed = windowed.clone()
+    mixed[2048:3072] = kp_valid
+    cases["8192x1024 mixed"] = (lm, t_desc, mixed, True)
     # ragged, with planted ties on the best distance
     tq = torch.as_tensor(rng.integers(0, 256, (1000, 32), dtype=np.uint8), device=dev)
     tt = torch.as_tensor(rng.integers(0, 256, (777, 32), dtype=np.uint8), device=dev)
@@ -236,29 +300,36 @@ def check_hamming(cfg, frames, dev):
     gate[:100, 100:200] = True
     gate[:100, 300:400] = True
     gate[7] = False  # a fully gated row
-    cases["1000x777"] = (tq, tt.contiguous(), gate)
+    cases["1000x777"] = (tq, tt.contiguous(), gate, True)
 
     out = None
-    for name, (qq, tt_, gg) in cases.items():
+    hamming.dense_tiles()
+    for name, (qq, tt_, gg, dense) in cases.items():
         got = hamming.hamming_top2(qq, tt_, gg)
+        tiles = hamming.dense_tiles()
         want = hamming.hamming_top2_plain(qq, tt_, gg)
         torch.cuda.synchronize()
         for a, b, what in zip(got, want, ("best", "idx", "second")):
             if not torch.equal(a, b):
                 raise AssertionError(f"hamming_top2 {what} differs at {name}: "
                                      f"{(a != b).sum().item()} rows")
+        require((tiles > 0) == dense, f"hamming_top2 {name}: {tiles} dense tiles")
         n, m = gg.shape
         nnz = int(gg.sum())
         t_k, d_k = timings(lambda: hamming.hamming_top2(qq, tt_, gg))
+        hamming.dense_tiles()
         t_p, d_p = timings(lambda: hamming.hamming_top2_plain(qq, tt_, gg))
         qb = hamming.unpack_bits(qq).float()
         tb = hamming.unpack_bits(tt_).float().T.contiguous()
         t_l, d_l = timings(lambda: torch.matmul(qb, tb))
-        b, by = bound(32 * n + 32 * m + n * m + 12 * n, POPC_PER_PAIR * nnz, POPC_OPS_S)
-        log(f"  hamming_top2 {name}: gated {nnz} pairs; kernel {t_k:.4f} ms "
-            f"(device {d_k:.4f}), plain {t_p:.4f} ms (device {d_p:.4f}), matmul "
-            f"on unpacked bits {t_l:.4f} ms (device {d_l:.4f}), bound "
-            f"{b * 1e3:.3f} us ({by})")
+        b, by = bound(32 * n + 32 * m + n * m + 12 * n, HAMMING_OPS_PER_PAIR * nnz,
+                      INT8_TC_OPS_S)
+        log(f"  hamming_top2 {name}: gated {nnz} pairs, {tiles} of "
+            f"{-(-n // 16) * -(-m // 512)} tiles on the tensor cores; kernel "
+            f"{t_k:.4f} ms (device {d_k:.4f}), plain {t_p:.4f} ms (device {d_p:.4f}), "
+            f"matmul on unpacked bits {t_l:.4f} ms (device {d_l:.4f}), bound "
+            f"{b * 1e3:.3f} us ({by}; the sparse walk's __popc floor "
+            f"{POPC_PER_PAIR * nnz / POPC_OPS_S * 1e6:.3f} us)")
         if name == "8192x1024":
             out = dict(name="hamming_top2", route="cuda",
                        source="plslam_torch/csrc/hamming_top2.cu",
@@ -267,9 +338,40 @@ def check_hamming(cfg, frames, dev):
                        plain_device_ms=d_p, bound_ms=b, bound_by=by,
                        library_ms=t_l, library_device_ms=d_l,
                        shapes="8192x1024 local-map match (also checked at "
-                              "1024x1024, 8192x1024 with the rescue's dense "
-                              "gate, and 1000x777)")
+                              "1024x1024, 8192x1024 at 10%, with the rescue's "
+                              "dense gate and mixed, and 1000x777)")
     return out
+
+
+def floors(cfg, dev):
+    """Device times of calls whose work is all fixed cost: a 7x9 FAST level
+    (one block), a flat 640x480 pyramid (every pixel fails the pre-test, so
+    no arc is evaluated), a 16x16 Hamming call and an 8192x1024 one whose
+    gate is all false (the gate is read, no pair is computed), and torch's
+    zero_ of that gate (one pass over its 8.4 MB)."""
+    import torch
+
+    from plslam_torch.ops import fast, hamming, image
+
+    th = float(cfg.orb.min_th_fast)
+    rng = np.random.default_rng(1)
+    tiny = torch.as_tensor(rng.integers(0, 256, (7, 9)).astype(np.float32), device=dev)
+    flat = image.build_pyramid(torch.full((480, 640), 128.0, device=dev),
+                               cfg.orb.n_levels, cfg.orb.scale_factor)
+    q = torch.as_tensor(rng.integers(0, 256, (8192, 32), dtype=np.uint8), device=dev)
+    t = torch.as_tensor(rng.integers(0, 256, (1024, 32), dtype=np.uint8), device=dev)
+    off = torch.zeros(8192, 1024, dtype=torch.bool, device=dev)
+    off16 = torch.zeros(16, 16, dtype=torch.bool, device=dev)
+    for name, fn in (("fast_score_nms 7x9", lambda: fast.fast_score_nms(tiny, th)),
+                     ("fast_score_nms_levels flat 640x480 pyramid",
+                      lambda: fast.fast_score_nms_levels(flat, th)),
+                     ("hamming_top2 16x16 nothing gated",
+                      lambda: hamming.hamming_top2(q[:16], t[:16], off16)),
+                     ("hamming_top2 8192x1024 nothing gated",
+                      lambda: hamming.hamming_top2(q, t, off)),
+                     ("torch zero_ of the 8192x1024 gate", lambda: off.zero_())):
+        log(f"  floor {name}: device {device_ms(fn) * 1e3:.2f} us")
+    require(hamming.dense_tiles() == 0, "dense tiles on an empty gate")
 
 
 def main_path(cfg, frames, poses, dev):
@@ -284,6 +386,7 @@ def main_path(cfg, frames, poses, dev):
     n = len(frames)
     fast.fast_score_nms.launches = 0
     hamming.hamming_top2.launches = 0
+    hamming.dense_tiles()
     per_frame = []
     t0 = time.perf_counter()
     for i, (g, d) in enumerate(frames):
@@ -295,6 +398,7 @@ def main_path(cfg, frames, poses, dev):
     wall = time.perf_counter() - t0
     launches = {"fast_score_nms": fast.fast_score_nms.launches,
                 "hamming_top2": hamming.hamming_top2.launches}
+    dense_tiles = hamming.dense_tiles()
     rows = len(tracker.trajectory)
     require(rows == n, f"trajectory has {rows} rows for {n} frames")
     require(tracker.state == OK, f"tracker state {tracker.state} after the run")
@@ -307,13 +411,13 @@ def main_path(cfg, frames, poses, dev):
     require(rmse < 0.012 and mx < 0.030, f"ATE rmse {rmse:.4f} m max {mx:.4f} m")
     built = n  # every process() call builds one frame
     tracked = n - 1  # every frame after the initializing one is dispatched
-    require(launches["fast_score_nms"] == 8 * built, f"launches {launches}")
-    require(launches["hamming_top2"] >= 3 * tracked, f"launches {launches}")
+    require(launches["fast_score_nms"] == built, f"launches {launches}")  # one per frame
+    require(launches["hamming_top2"] == 3 * tracked, f"launches {launches}")
     ms = np.array(per_frame[1:]) * 1e3  # the first frame initializes
     return dict(frames=n, tracked=rows, keyframes=m.n_kf, points=m.n_points(),
                 lines=m.n_lines(), fps=n / wall, p50_ms=float(np.percentile(ms, 50)),
                 p90_ms=float(np.percentile(ms, 90)), ate_rmse_cm=rmse * 100,
-                ate_max_cm=mx * 100, launches=launches,
+                ate_max_cm=mx * 100, launches=launches, hamming_dense_tiles=dense_tiles,
                 rescue=rescue_step(cfg, tracker, frames[-1], dev))
 
 
@@ -334,10 +438,12 @@ def rescue_step(cfg, tracker, frame, dev):
                   torch.tensor([0.4, 0.0, 0.0], device=dev), True]
     gray, depth = tracker._quantize_inputs(*frame)
     before = hamming.hamming_top2.launches
+    hamming.dense_tiles()
     out = fused_track_step(cfg, torch.from_numpy(gray).to(dev),
                            torch.from_numpy(depth.astype(np.int32)).to(dev), *args)
     stats = out.stats.cpu().numpy()
     calls = hamming.hamming_top2.launches - before
+    tiles = hamming.dense_tiles()
     _, R, t = tracker.trajectory[-1]
     dt = float(np.abs(out.t.cpu().numpy() - t).max())
     require(stats[5] > 100 and stats[1] == stats[5],
@@ -345,7 +451,8 @@ def rescue_step(cfg, tracker, frame, dev):
     require(calls == 4, f"{calls} hamming_top2 launches in a rescued step")
     require(dt < 0.005, f"rescued pose {dt:.4f} m off the tracked one")
     return dict(motion_matches=int(stats[0]), rescue_inliers=int(stats[5]),
-                local_inliers=int(stats[2]), hamming_launches=calls, pose_err_m=dt)
+                local_inliers=int(stats[2]), hamming_launches=calls,
+                hamming_dense_tiles=tiles, pose_err_m=dt)
 
 
 def main() -> int:
@@ -371,6 +478,7 @@ def main() -> int:
     log(f"rendered {N_FRAMES} frames 640x480 in {time.perf_counter() - t0:.1f} s")
 
     kernels = [check_fast(cfg, frames, dev), check_hamming(cfg, frames, dev)]
+    floors(cfg, dev)
     log("phase kernels: ok, both kernels exactly equal to their plain versions")
 
     res = main_path(cfg, frames, poses, dev)

@@ -25,6 +25,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -82,3 +83,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of kernel ``name``'s library, returning an
+    int, with its argument types set once."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
+    return fn

@@ -7,9 +7,10 @@ image give the Bresenham circle, a circular min over 9-windows gives the
 corner score (the largest threshold for which the pixel stays a corner,
 matching cv::FAST's score), and a 3x3 max-pool gives non-max suppression.
 
-``fast_score_nms`` is the entry point: on a CUDA tensor it launches the
-hand-written kernel ``csrc/fast_score_nms.cu`` (bit-identical), on a CPU
-tensor it runs the plain version.
+``fast_score_nms_levels`` scores a whole pyramid: on CUDA tensors it makes
+one launch of the hand-written kernel ``csrc/fast_score_nms.cu`` for all
+levels (bit-identical), on CPU tensors it runs the plain version per level.
+``fast_score_nms`` is the same for one image.
 
 Selection keeps the JAX package's tie order: lowest index first among equal
 scores (FAST scores are integer-valued on integer images, so ties are
@@ -83,37 +84,71 @@ def fast_score_nms_plain(img: torch.Tensor, min_threshold: float) -> torch.Tenso
     return nms3x3(fast_score_map(img.float(), min_threshold))
 
 
+class _FastLevel(ctypes.Structure):
+    """``FastLevel`` of ``csrc/fast_score_nms.cu``."""
+
+    _fields_ = [("img", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("h", ctypes.c_int), ("w", ctypes.c_int)]
+
+
+MAX_LEVELS_PER_LAUNCH = 8  # MAX_LEVELS of the kernel's level table
+
+
+def fast_score_nms_levels(levels: list[torch.Tensor],
+                          min_threshold: float) -> list[torch.Tensor]:
+    """NMS'd FAST-9 corner-score maps of every image in ``levels`` (each
+    (H, W) float32, 0..255; typically a pyramid).
+
+    CUDA tensors go through the kernel (``csrc/fast_score_nms.cu``), one
+    launch for up to 8 levels; CPU tensors through
+    :func:`fast_score_nms_plain`, level by level. Both give the same bits.
+    """
+    if not levels:
+        return []
+    dev = levels[0].device
+    if dev.type == "cpu":
+        return [fast_score_nms_plain(lvl, min_threshold) for lvl in levels]
+    if dev.type != "cuda":
+        raise ValueError(f"fast_score_nms: unsupported device {dev}")
+    if not min_threshold >= 0:
+        raise ValueError("fast_score_nms: the kernel needs min_threshold >= 0, "
+                         f"got {min_threshold}")
+    for lvl in levels:
+        if lvl.device != dev or lvl.dtype != torch.float32 or lvl.dim() != 2 \
+                or not lvl.is_contiguous():
+            raise ValueError("fast_score_nms: needs contiguous (H, W) float32 "
+                             f"tensors on {dev}, got {tuple(lvl.shape)} "
+                             f"{lvl.dtype} on {lvl.device}")
+        if lvl.numel() == 0:
+            raise ValueError("fast_score_nms: empty image")
+    fn = cuda_build.function("fast_score_nms", "fast_score_nms_launch",
+                             [ctypes.POINTER(_FastLevel), ctypes.c_int, ctypes.c_float,
+                              ctypes.c_void_p])
+    outs = [torch.empty_like(lvl) for lvl in levels]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for i in range(0, len(levels), MAX_LEVELS_PER_LAUNCH):
+            part = range(i, min(i + MAX_LEVELS_PER_LAUNCH, len(levels)))
+            table = (_FastLevel * len(part))(*[
+                _FastLevel(levels[j].data_ptr(), outs[j].data_ptr(), *levels[j].shape)
+                for j in part])
+            err = fn(table, len(part), float(min_threshold), stream)
+            if err != 0:
+                raise RuntimeError(f"fast_score_nms kernel launch failed: cudaError {err}")
+            fast_score_nms.launches += 1
+    return outs
+
+
 def fast_score_nms(img: torch.Tensor, min_threshold: float) -> torch.Tensor:
     """NMS'd FAST-9 corner-score map of ``img`` ((H, W) float32, 0..255).
 
-    A CUDA tensor goes through the kernel (``csrc/fast_score_nms.cu``); a CPU
-    tensor through :func:`fast_score_nms_plain`. Both give the same bits.
+    :func:`fast_score_nms_levels` on a one-level table: the kernel on a CUDA
+    tensor, :func:`fast_score_nms_plain` on a CPU tensor, the same bits.
     """
-    if img.device.type == "cpu":
-        return fast_score_nms_plain(img, min_threshold)
-    if img.device.type != "cuda":
-        raise ValueError(f"fast_score_nms: unsupported device {img.device}")
-    if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
-        raise ValueError("fast_score_nms: needs a contiguous (H, W) float32 "
-                         f"tensor, got {tuple(img.shape)} {img.dtype}")
-    h, w = img.shape
-    if h == 0 or w == 0:
-        raise ValueError("fast_score_nms: empty image")
-    lib = cuda_build.load("fast_score_nms")
-    fn = lib.fast_score_nms_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(img.data_ptr(), out.data_ptr(), h, w, float(min_threshold), stream)
-    if err != 0:
-        raise RuntimeError(f"fast_score_nms kernel launch failed: cudaError {err}")
-    fast_score_nms.launches += 1
-    return out
+    return fast_score_nms_levels([img], min_threshold)[0]
 
 
+# launches of the kernel, by fast_score_nms_levels and fast_score_nms alike
 fast_score_nms.launches = 0
 
 

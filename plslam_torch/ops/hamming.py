@@ -5,6 +5,9 @@ best and second-best Hamming distance over the gated target columns and the
 argmin (lowest index on ties). On a CUDA tensor it launches the
 hand-written kernel ``csrc/hamming_top2.cu``, which never materializes the
 (N, M) distance matrix; on CPU tensors it runs :func:`hamming_top2_plain`.
+The kernel chooses per 16 x 512 tile, on the device, between a sparse walk
+over the gated pairs and the tensor cores; :func:`dense_tiles` counts the
+tiles that took the tensor cores.
 
 Replaces the reference's per-pair popcount loop
 (``ORBmatcher::DescriptorDistance``, ORBmatcher.cc:2083-2104).
@@ -85,19 +88,21 @@ def hamming_top2(q_desc: torch.Tensor, t_desc: torch.Tensor, gate: torch.Tensor)
     for name, x in (("q_desc", q_desc), ("t_desc", t_desc)):
         if x.data_ptr() % 16:
             raise ValueError(f"hamming_top2: {name} must be 16-byte aligned")
+    if m >= 1 << 22:
+        raise ValueError(f"hamming_top2: at most 2^22 - 1 targets, got {m}")
     best = torch.empty(n, dtype=torch.int32, device=q_desc.device)
     idx = torch.empty_like(best)
     second = torch.empty_like(best)
     if n == 0:
         return best, idx, second
-    lib = cuda_build.load("hamming_top2")
-    fn = lib.hamming_top2_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
+    fn = cuda_build.function("hamming_top2", "hamming_top2_launch",
+                             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
+    counter = _dense_counter(q_desc.device)
     with torch.cuda.device(q_desc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q_desc.data_ptr(), t_desc.data_ptr(), gate.data_ptr(), n, m,
-                 best.data_ptr(), idx.data_ptr(), second.data_ptr(), stream)
+                 best.data_ptr(), idx.data_ptr(), second.data_ptr(),
+                 counter.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"hamming_top2 kernel launch failed: cudaError {err}")
     hamming_top2.launches += 1
@@ -105,3 +110,30 @@ def hamming_top2(q_desc: torch.Tensor, t_desc: torch.Tensor, gate: torch.Tensor)
 
 
 hamming_top2.launches = 0
+
+_dense_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _dense_counter(device: torch.device) -> torch.Tensor:
+    """The int32 on ``device`` that the kernel adds 1 to per tensor-core tile."""
+    c = _dense_counters.get(device)
+    if c is None:
+        c = _dense_counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return c
+
+
+def dense_min_pairs() -> int:
+    """The kernel's threshold: a 16 x 512 tile with more gated pairs runs on
+    the tensor cores (read from the built library; needs nvcc)."""
+    return cuda_build.function("hamming_top2", "hamming_dense_min_pairs", [])()
+
+
+def dense_tiles() -> int:
+    """Tiles that took the tensor-core path since the last call, summed over
+    devices; waits for the device and sets the counts back to 0.
+    Instrumentation for tests and the smoke run: nothing else reads it."""
+    total = 0
+    for c in _dense_counters.values():
+        total += int(c.item())
+        c.zero_()
+    return total

@@ -9,8 +9,8 @@ intensity-centroid orientation (:77-105), 7x7 Gaussian blur and the
 
 Descriptors are OpenCV's ORB byte layout (same pattern, same rounding) and
 bit-identical to the JAX package's on identical keypoints and angles. The
-FAST score+NMS of every level goes through ``fast.fast_score_nms``, the CUDA
-kernel on a CUDA tensor.
+FAST score+NMS of all levels is one ``fast.fast_score_nms_levels`` call, one
+launch of the CUDA kernel on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -174,8 +174,8 @@ def extract_orb(img: torch.Tensor, cfg: OrbConfig) -> OrbFeatures:
     xs_all, ys_all, resp_all, oct_all, ang_all, desc_all, valid_all = (
         [], [], [], [], [], [], []
     )
-    for l, lvl in enumerate(levels):
-        score = fast.fast_score_nms(lvl, float(cfg.min_th_fast))
+    scores = fast.fast_score_nms_levels(levels, float(cfg.min_th_fast))
+    for l, (lvl, score) in enumerate(zip(levels, scores)):
         cys, cxs, cresp = fast.detect_cellwise(
             score,
             float(cfg.ini_th_fast),

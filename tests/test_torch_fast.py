@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from plslam_tpu.ops import fast as jfast
 from plslam_tpu.ops.pallas_fast import fast_score_nms as pallas_fast_score_nms
 from plslam_torch.ops import fast as tfast
+from plslam_torch.ops import image as timage
 
 
 def _jax_ref(img, th):
@@ -106,3 +107,33 @@ def test_cpu_tensor_takes_plain_path_without_counting():
     before = tfast.fast_score_nms.launches
     tfast.fast_score_nms(torch.zeros(16, 16), 7.0)
     assert tfast.fast_score_nms.launches == before
+
+
+def test_levels_equal_jax_on_rendered_pyramid():
+    """fast_score_nms_levels on the port's 8-level pyramid of a rendered
+    640x480 room frame (the tracker's 6-bit gray) equals the JAX package's
+    per-level nms3x3(fast_score_map(...)) on the same levels, bit for bit."""
+    from plslam_torch.geometry.projection import Camera
+    from plslam_torch.utils.synthetic import RoomScene, smooth_trajectory
+
+    cam = Camera(fx=525.0, fy=525.0, cx=319.5, cy=239.5, width=640, height=480)
+    R, t = smooth_trajectory(300)[40]
+    g, _ = RoomScene(0).render(cam, R, t)
+    g8 = np.clip(g, 0, 255).astype(np.uint8)
+    img = (((g8 >> 2) << 2) + 2).astype(np.float32)
+    levels = timage.build_pyramid(torch.from_numpy(img), 8, 1.2)
+    got = tfast.fast_score_nms_levels(levels, 7.0)
+    assert len(got) == 8
+    n_corners = 0
+    for lvl, score in zip(levels, got):
+        want = _jax_ref(lvl.numpy(), 7.0)
+        np.testing.assert_allclose(score.numpy(), want, rtol=0, atol=0)
+        n_corners += int((want > 0).sum())
+    assert n_corners > 1000  # the room's texture fires on every level
+
+
+def test_levels_empty_and_single():
+    assert tfast.fast_score_nms_levels([], 7.0) == []
+    img = _structured(37, 45)
+    (got,) = tfast.fast_score_nms_levels([torch.from_numpy(img)], 7.0)
+    np.testing.assert_array_equal(got.numpy(), _jax_ref(img, 7.0))
