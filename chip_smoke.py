@@ -11,15 +11,26 @@ Phases, one line each:
                the bound (the least time the card could take for the same
                work): FAST as one launch for the 8 pyramid levels and each
                level alone, Hamming on windowed, 10%, dense and mixed gates
-               with the count of tiles that took the tensor cores.
+               with the count of tiles that took the tensor cores; and
+               Hamming at the local mapper's shapes, with gates built as
+               the mapper builds them from the room's keyframes: forward
+               fusion 4096x1024, reverse fusion as ONE batched launch of
+               10 x 2048x1024, an epipolar triangulation gate 1024x1024.
   3. main    — the 150-frame synthetic room (640x480 RGB-D, points+lines)
                through plslam_torch's Tracker with local_mapper=None, with
                the launch counts that prove both kernels ran on the path,
                tracked fps, per-frame latency and ATE against ground truth;
                then one step through the rescue stage, which the room
                never needs, forced by a wrong velocity prior.
-Then a JSON line of per-kernel numbers, the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}.
+  4. mapping — bench.py's own configuration: the same 150 frames through
+               Tracker with AsyncLocalMapper(LocalMapper(...)) (fusion,
+               triangulation, culling, local BA on a worker thread), with
+               launch and run counts that prove fusion, the batched Hamming
+               launch and BA ran, fps, latency, and ATE as tracked and as
+               healed against the keyframes BA moved.
+Then a JSON line of per-kernel numbers (launches: the mapping phase, which
+is bench.py's path; the main phase's beside them), the card's name and
+power limit, and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without CUDA, when the package is
 missing, or when any phase fails.
@@ -65,6 +76,7 @@ POPC_PER_PAIR = 8  # the sparse walk: one per 32-bit word of a descriptor
 REPLACES = {"fast_score_nms": "ops/pallas_fast.py:120",
             "hamming_top2": "ops/pallas_matching.py:116"}
 N_FRAMES = 150  # bench.py's sequence
+ATE_LIMITS_M = (0.012, 0.030)  # RMSE, max
 REPS = 50
 
 
@@ -343,6 +355,116 @@ def check_hamming(cfg, frames, dev):
     return out
 
 
+def _keyframe(cfg, frame, pose, dev):
+    """FrameData of a rendered frame on the card, with its pose tensors."""
+    import torch
+
+    from plslam_torch.models import frame as mframe
+
+    g, d = frame
+    fd = mframe.build_frame(torch.as_tensor(g, device=dev),
+                            torch.as_tensor(d.astype(np.int32), device=dev), cfg)
+    R, t = (torch.as_tensor(np.asarray(x, np.float32), device=dev) for x in pose)
+    return fd, R, t
+
+
+def _landmarks(cfg, kfs, cap):
+    """Map points as the tracker mints them from depth (world position,
+    descriptor, scale band) from keyframes ``kfs``, at most ``cap``, padded
+    to ``cap`` with invalid rows, as the mapper pads its candidates."""
+    import torch
+
+    from plslam_torch.geometry import projection as gproj
+
+    scale, top = cfg.orb.scale_factor, cfg.orb.n_levels - 1
+    p3d, desc, maxd = [], [], []
+    for fd, R, t in kfs:
+        ok = fd.kp_valid & (fd.kp_depth > 0)
+        pc = gproj.backproject(cfg.camera, fd.kp_xy_un[ok], fd.kp_depth[ok])
+        pw = (pc - t) @ R  # R^T (pc - t)
+        p3d.append(pw)
+        desc.append(fd.kp_desc[ok])
+        maxd.append(torch.linalg.vector_norm(pc, dim=-1) * scale ** fd.kp_octave[ok].float())
+    p3d, desc, maxd = (torch.cat(x)[:cap] for x in (p3d, desc, maxd))
+    k = p3d.shape[0]
+    pad = cap - k
+    dev = p3d.device
+    return (torch.cat([p3d, torch.zeros(pad, 3, device=dev)]),
+            torch.cat([desc, torch.zeros(pad, 32, dtype=torch.uint8, device=dev)]),
+            torch.cat([maxd / scale**top, torch.zeros(pad, device=dev)]),
+            torch.cat([maxd, torch.zeros(pad, device=dev)]),
+            torch.arange(cap, device=dev) < k)
+
+
+def check_mapping_shapes(cfg, frames, poses, dev):
+    """Hamming top-2 at the local mapper's three shapes, gates built as the
+    mapper builds them (models/local_mapping.py, models/triangulation.py)
+    from 11 keyframes of the room at their true poses:
+    - forward fusion: landmarks of 10 keyframes (4096, padded) into the
+      newest keyframe's 1024 features, 3 px x scale^level window;
+    - reverse fusion: the newest keyframe's 2048 landmarks into the 10
+      others at once, 5 px window, ONE batched launch;
+    - triangulation: the epipolar gate of the newest keyframe against a
+      neighbour 1024 x 1024 (every valid feature a candidate).
+    Each equals its plain version exactly. Returns one record per shape."""
+    import torch
+
+    from plslam_torch.models import local_mapping as tlm
+    from plslam_torch.models import triangulation as ttri
+    from plslam_torch.ops import hamming
+
+    kfs = [_keyframe(cfg, frames[i], poses[i], dev) for i in range(0, 110, 10)]
+    new, others = kfs[-1], kfs[:-1]
+    fd0, R0, t0 = new
+    cases = []
+    p3d, desc, mind, maxd, valid = _landmarks(cfg, others, tlm.POINT_CAP)
+    g = tlm.fuse_gate(cfg, fd0.kp_xy_un, fd0.kp_octave, fd0.kp_valid, p3d, mind, maxd,
+                       valid, R0, t0, tlm.FUSE_TH_PX)
+    cases.append(("4096x1024 forward fusion", "hamming_top2", (desc, fd0.kp_desc, g)))
+    p3d, desc, mind, maxd, valid = _landmarks(cfg, [new], tlm.REVERSE_CAP)
+    st = lambda name: torch.stack([getattr(f, name) for f, _, _ in others])  # noqa: E731
+    Rs = torch.stack([R for _, R, _ in others])
+    ts = torch.stack([t for _, _, t in others])
+    g = tlm.fuse_gate(cfg, st("kp_xy_un"), st("kp_octave"), st("kp_valid"), p3d, mind, maxd,
+                       valid, Rs, ts, 5.0).contiguous()
+    cases.append((f"{len(others)} x 2048x1024 reverse fusion, one batched launch",
+                  "hamming_top2_batched", (desc, st("kp_desc"), g)))
+    fd1, R1, t1 = others[-1]
+    g = ttri.epipolar_gate(cfg, fd0.kp_xy_un, fd0.kp_octave, fd0.kp_valid, R0, t0,
+                           fd1.kp_xy_un, fd1.kp_octave, fd1.kp_valid, R1, t1)
+    cases.append(("1024x1024 epipolar triangulation", "hamming_top2", (fd0.kp_desc,
+                                                                       fd1.kp_desc, g)))
+    out = []
+    hamming.dense_tiles()
+    for name, fn_name, (q, t, gate) in cases:
+        fn = getattr(hamming, fn_name)
+        plain = getattr(hamming, fn_name + "_plain")
+        got = fn(q, t, gate)
+        tiles = hamming.dense_tiles()
+        want = plain(q, t, gate)
+        torch.cuda.synchronize()
+        for a, b, what in zip(got, want, ("best", "idx", "second")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{fn_name} {what} differs at {name}: "
+                                     f"{(a != b).sum().item()} rows")
+        n, m = gate.shape[-2:]
+        batch = gate.numel() // (n * m)
+        nnz = int(gate.sum())
+        t_k, d_k = timings(lambda: fn(q, t, gate))
+        hamming.dense_tiles()
+        t_p, d_p = timings(lambda: plain(q, t, gate))
+        b, by = bound(gate.numel() + 32 * n + 32 * batch * m + 12 * batch * n,
+                      HAMMING_OPS_PER_PAIR * nnz, INT8_TC_OPS_S)
+        log(f"  {fn_name} {name}: gated {nnz} pairs, {int((got[0] <= 50).sum())} rows "
+            f"within the fusion distance, {tiles} of {batch * -(-n // 16) * -(-m // 512)} tiles "
+            f"on the tensor cores; kernel {t_k:.4f} ms (device {d_k:.4f}), plain {t_p:.4f} ms "
+            f"(device {d_p:.4f}), bound {b * 1e3:.3f} us ({by})")
+        out.append(dict(shape=name, launch=fn_name, gated_pairs=nnz, dense_tiles=tiles,
+                        ms=t_k, device_ms=d_k, plain_ms=t_p, plain_device_ms=d_p,
+                        bound_ms=b, bound_by=by))
+    return out
+
+
 def floors(cfg, dev):
     """Device times of calls whose work is all fixed cost: a 7x9 FAST level
     (one block), a flat 640x480 pyramid (every pixel fails the pre-test, so
@@ -384,9 +506,7 @@ def main_path(cfg, frames, poses, dev):
     m = SlamMap(cfg, device=dev)
     tracker = Tracker(cfg, m)
     n = len(frames)
-    fast.fast_score_nms.launches = 0
-    hamming.hamming_top2.launches = 0
-    hamming.dense_tiles()
+    _reset_counts()
     per_frame = []
     t0 = time.perf_counter()
     for i, (g, d) in enumerate(frames):
@@ -408,7 +528,8 @@ def main_path(cfg, frames, poses, dev):
     gt = np.array([-(R.T @ t) for R, t in poses])
     require(np.isfinite(est).all(), "non-finite camera centres")
     rmse, mx = ate(est, gt)
-    require(rmse < 0.012 and mx < 0.030, f"ATE rmse {rmse:.4f} m max {mx:.4f} m")
+    require(rmse < ATE_LIMITS_M[0] and mx < ATE_LIMITS_M[1],
+            f"ATE rmse {rmse:.4f} m max {mx:.4f} m")
     built = n  # every process() call builds one frame
     tracked = n - 1  # every frame after the initializing one is dispatched
     require(launches["fast_score_nms"] == built, f"launches {launches}")  # one per frame
@@ -419,6 +540,81 @@ def main_path(cfg, frames, poses, dev):
                 p90_ms=float(np.percentile(ms, 90)), ate_rmse_cm=rmse * 100,
                 ate_max_cm=mx * 100, launches=launches, hamming_dense_tiles=dense_tiles,
                 rescue=rescue_step(cfg, tracker, frames[-1], dev))
+
+
+def _reset_counts():
+    from plslam_torch.ops import fast, hamming
+    from plslam_torch.optim import local_ba
+
+    fast.fast_score_nms.launches = 0
+    hamming.hamming_top2.launches = 0
+    hamming.hamming_top2_batched.launches = 0
+    local_ba.bundle_adjust_stepped.runs = 0
+    hamming.dense_tiles()
+
+
+def mapping_path(cfg, frames, poses, dev):
+    """bench.py's configuration: Tracker with AsyncLocalMapper(LocalMapper)
+    over the 150 frames; every count is set to 0 just before the run and
+    read after the mapper has drained."""
+    import torch
+
+    from plslam_torch.models.async_mapping import AsyncLocalMapper
+    from plslam_torch.models.local_mapping import LocalMapper
+    from plslam_torch.models.map import SlamMap
+    from plslam_torch.models.tracking import OK, Tracker
+    from plslam_torch.ops import fast, hamming
+    from plslam_torch.optim import local_ba
+
+    m = SlamMap(cfg, device=dev)
+    mapper = AsyncLocalMapper(LocalMapper(cfg, m))
+    tracker = Tracker(cfg, m, local_mapper=mapper)
+    n = len(frames)
+    _reset_counts()
+    per_frame = []
+    t0 = time.perf_counter()
+    for i, (g, d) in enumerate(frames):
+        s = time.perf_counter()
+        tracker.process(g, d, i / 30.0)
+        per_frame.append(time.perf_counter() - s)
+    tracker.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mapper.wait_idle()
+    mapper.shutdown()
+    torch.cuda.synchronize()
+    drained = time.perf_counter() - t0
+    launches = {"fast_score_nms": fast.fast_score_nms.launches,
+                "hamming_top2": hamming.hamming_top2.launches,
+                "hamming_top2_batched": hamming.hamming_top2_batched.launches}
+    ba_runs = local_ba.bundle_adjust_stepped.runs
+    dense_tiles = hamming.dense_tiles()
+    require(mapper.error is None, f"local mapping failed: {mapper.error!r}")
+    require(not mapper._thread.is_alive(), "the mapper thread did not stop")
+    rows = len(tracker.trajectory)
+    require(rows == n, f"trajectory has {rows} rows for {n} frames")
+    require(tracker.state == OK, f"tracker state {tracker.state} after the run")
+    require(mapper.inner.fuse_passes >= 1, "no fusion pass ran")
+    require(ba_runs >= 1, "no local BA ran")
+    require(launches["fast_score_nms"] == n, f"launches {launches}")
+    require(launches["hamming_top2"] > 3 * (n - 1), f"launches {launches}: no mapper launch")
+    require(launches["hamming_top2_batched"] >= 1, f"launches {launches}: no batched launch")
+    gt = np.array([-(R.T @ t) for R, t in poses])
+    res = {}
+    for what, traj in (("tracked", tracker.trajectory), ("healed", tracker.healed_trajectory())):
+        est = np.array([-(R.T @ t) for _, R, t in traj])
+        require(np.isfinite(est).all(), f"non-finite {what} camera centres")
+        rmse, mx = ate(est, gt)
+        require(rmse < ATE_LIMITS_M[0] and mx < ATE_LIMITS_M[1],
+                f"{what} ATE rmse {rmse:.4f} m max {mx:.4f} m")
+        res[f"ate_{what}_rmse_cm"], res[f"ate_{what}_max_cm"] = rmse * 100, mx * 100
+    ms = np.array(per_frame[1:]) * 1e3
+    return dict(frames=n, tracked=rows, fps=n / wall, seconds_to_drain=drained,
+                p50_ms=float(np.percentile(ms, 50)), p90_ms=float(np.percentile(ms, 90)),
+                max_ms=float(ms.max()), keyframes=m.n_kf,
+                keyframes_valid=int(m.kf_valid.sum()), points=m.n_points(),
+                lines=m.n_lines(), fuse_passes=mapper.inner.fuse_passes, ba_runs=ba_runs,
+                launches=launches, hamming_dense_tiles=dense_tiles, **res)
 
 
 def rescue_step(cfg, tracker, frame, dev):
@@ -478,13 +674,21 @@ def main() -> int:
     log(f"rendered {N_FRAMES} frames 640x480 in {time.perf_counter() - t0:.1f} s")
 
     kernels = [check_fast(cfg, frames, dev), check_hamming(cfg, frames, dev)]
+    kernels[1]["mapping_shapes"] = check_mapping_shapes(cfg, frames, poses, dev)
     floors(cfg, dev)
-    log("phase kernels: ok, both kernels exactly equal to their plain versions")
+    log("phase kernels: ok, both kernels exactly equal to their plain versions, "
+        "Hamming also batched and at the mapper's shapes")
 
     res = main_path(cfg, frames, poses, dev)
-    for k in kernels:
-        k["launches"] = res["launches"][k["name"]]
     log("phase main: ok, " + json.dumps(res))
+    mres = mapping_path(cfg, frames, poses, dev)
+    log("phase mapping: ok, " + json.dumps(mres))
+    kernels[0]["launches"] = mres["launches"]["fast_score_nms"]
+    kernels[0]["launches_main_phase"] = res["launches"]["fast_score_nms"]
+    kernels[1]["launches"] = (mres["launches"]["hamming_top2"]
+                              + mres["launches"]["hamming_top2_batched"])
+    kernels[1]["launches_batched"] = mres["launches"]["hamming_top2_batched"]
+    kernels[1]["launches_main_phase"] = res["launches"]["hamming_top2"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -8,6 +8,8 @@ configuration and map state, as plain Python / numpy values:
 - :func:`map_from_numpy` builds a :class:`SlamMap` from a JAX ``SlamMap``'s
   numpy arrays, obs dicts, counters, keyframe snapshots and descriptor
   arenas.
+- :func:`ba_problem_from_numpy` builds a local-BA problem from a JAX
+  ``BAProblem``'s arrays, so that both packages solve the same problem.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ from .config import (CloudConfig, LineConfig, LoopConfig, MapCapacity,
                      MappingConfig, MatcherConfig, OrbConfig, SlamConfig,
                      TrackingConfig)
 from .geometry.projection import Camera
+from .models.frame import FrameData
 from .models.map import HostFrame, SlamMap
+from .optim import local_ba
 
 _SECTIONS = dict(orb=OrbConfig, lines=LineConfig, matcher=MatcherConfig,
                  tracking=TrackingConfig, mapping=MappingConfig, loop=LoopConfig,
@@ -41,7 +45,7 @@ def config_from_dict(d: dict) -> SlamConfig:
 # numpy arrays of SlamMap that carry across as they are
 _ARRAYS = (
     "kf_R", "kf_t", "kf_valid", "kf_frame_id", "kf_timestamp", "kf_pt_idx",
-    "kf_ln_idx", "kf_parent",
+    "kf_ln_idx", "kf_parent", "kf_cull_parent", "kf_cull_Rcp", "kf_cull_tcp",
     "pt_pos", "pt_desc", "pt_normal", "pt_min_dist", "pt_max_dist", "pt_valid",
     "pt_first_kf", "pt_visible", "pt_found",
     "ln_ep", "ln_desc", "ln_valid", "ln_first_kf", "ln_visible", "ln_found",
@@ -58,6 +62,9 @@ def map_from_numpy(arrays: dict, cfg: SlamConfig, device="cuda") -> SlamMap:
     ``_ln_next``; ``kf_frames`` (per-keyframe snapshots with the
     ``HostFrame`` fields, or None); and the device descriptor arenas as numpy,
     ``pt_desc_arena`` (max_points, 32) and ``ln_desc_arena`` (max_lines, 72).
+    Optional ``kf_frames_dev``: per keyframe its full FrameData as numpy
+    fields (what the JAX map keeps on its device), or None; without it the
+    port uploads a keyframe's host snapshot on first use.
     """
     m = SlamMap(cfg, device=device)
     for name in _ARRAYS:
@@ -74,8 +81,23 @@ def map_from_numpy(arrays: dict, cfg: SlamConfig, device="cuda") -> SlamMap:
     m._pt_next = int(arrays["_pt_next"])
     m._ln_next = int(arrays["_ln_next"])
     m.kf_frames = [None if f is None else HostFrame(f) for f in arrays["kf_frames"]]
-    m._pt_desc_dev = torch.as_tensor(np.asarray(arrays["pt_desc_arena"], np.uint8),
-                                     device=m.device).clone()
-    m._ln_desc_dev = torch.as_tensor(np.asarray(arrays["ln_desc_arena"], np.uint8),
-                                     device=m.device).clone()
+    for kf, fd in enumerate(arrays.get("kf_frames_dev") or []):
+        if fd is not None:
+            m.kf_frames_dev[kf] = FrameData(*(torch.from_numpy(np.array(getattr(fd, f)))
+                                              .to(m.device) for f in FrameData._fields))
+    m._pt_desc_dev = torch.from_numpy(np.array(arrays["pt_desc_arena"], np.uint8)).to(m.device)
+    m._ln_desc_dev = torch.from_numpy(np.array(arrays["ln_desc_arena"], np.uint8)).to(m.device)
     return m
+
+
+def ba_problem_from_numpy(arrays: dict, device="cuda") -> local_ba.BAProblem:
+    """A :class:`local_ba.BAProblem` on ``device`` from a JAX ``BAProblem``
+    as numpy arrays, by field name (``prob._asdict()``); index fields become
+    int64."""
+    out = {}
+    for name in local_ba.BAProblem._fields:
+        a = np.array(arrays[name])
+        if name in ("obs_cam", "obs_pt", "lobs_cam", "lobs_ln"):
+            a = a.astype(np.int64)
+        out[name] = torch.from_numpy(a).to(device)
+    return local_ba.BAProblem(**out)

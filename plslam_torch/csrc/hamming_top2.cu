@@ -58,6 +58,12 @@
 // 16 queries on the dense path; spreading a row's columns over more blocks
 // would need a merge across blocks. At 1024 rows the walk is bound by the
 // latency of its dependent reads, not by SMs.
+// Batches: gridDim.y = B problems that share the queries, each with its own
+// targets, gate and outputs at a fixed stride (the local mapper projects one
+// candidate set into 10 keyframes at once). Block (x, y) is the 16-row tile x
+// of problem y and does exactly what block x of a single problem does, so an
+// unbatched call is the B = 1 case of the same kernel. 10 x 2048 rows give
+// 1280 blocks where 2048 rows alone give 128, fewer than the 132 SMs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -169,6 +175,13 @@ hamming_top2_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__
   __shared__ uint16_t s_bits[2][GROUP][ROWS][32];  // per tile, row, lane: 16 gate bits
   __shared__ int s_cnt[2][GROUP][WARPS];
   __shared__ Top2 s_part[WARPS][ROWS];
+
+  // problem blockIdx.y of the batch: its targets, gate and outputs
+  t += (size_t)blockIdx.y * m * 8;
+  gate += (size_t)blockIdx.y * n * m;
+  best_out += (size_t)blockIdx.y * n;
+  idx_out += (size_t)blockIdx.y * n;
+  second_out += (size_t)blockIdx.y * n;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;  // mma fragment coordinates
@@ -324,12 +337,13 @@ hamming_top2_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__
 
 }  // namespace
 
-// q (n, 32) and t (m, 32) bytes, 16-byte aligned; gate (n, m) bytes, any
-// alignment, m < 2^22; dense_tiles: one int that counts tensor-core tiles.
-extern "C" int hamming_top2_launch(const void* q, const void* t, const uint8_t* gate,
-                                   int n, int m, int* best, int* idx, int* second,
-                                   int* dense_tiles, cudaStream_t stream) {
-  const dim3 grid((n + ROWS - 1) / ROWS);
+// q (n, 32) bytes shared by the batch, t (batch, m, 32) bytes, both 16-byte
+// aligned; gate (batch, n, m) bytes, any alignment, m < 2^22; outputs
+// (batch, n); dense_tiles: one int that counts tensor-core tiles.
+extern "C" int hamming_top2_batched_launch(const void* q, const void* t, const uint8_t* gate,
+                                           int n, int m, int batch, int* best, int* idx,
+                                           int* second, int* dense_tiles, cudaStream_t stream) {
+  const dim3 grid((n + ROWS - 1) / ROWS, batch);
   hamming_top2_kernel<<<grid, NT, 0, stream>>>(
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(t), gate, n, m,
       best, idx, second, dense_tiles);

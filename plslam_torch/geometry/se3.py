@@ -8,7 +8,10 @@ The se(3) tangent is ordered ``[omega, upsilon]`` (rotation first) to match
 the g2o ``SE3Quat::exp`` convention of the reference optimizer, so the
 chi²/step-size behaviour of the LM loops is directly comparable. Every
 function is written with ``torch.where`` (no data-dependent python
-branches), so ``torch.func.jacfwd`` differentiates through it.
+branches), so ``torch.func.jacfwd`` differentiates through it. Every
+function also takes a leading batch of poses (``R: (..., 3, 3)``, ``t`` and
+``w: (..., 3)``, ``xi: (..., 6)``); a single pose goes through the same
+operations as before the batch form existed, so its results are unchanged.
 """
 
 from __future__ import annotations
@@ -20,15 +23,30 @@ _EPS = 1e-8
 
 def hat(w: torch.Tensor) -> torch.Tensor:
     """Skew-symmetric matrix [w]_x such that hat(w) @ v = w × v."""
-    wx, wy, wz = w[0], w[1], w[2]
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
     z = torch.zeros_like(wx)
     return torch.stack(
         [
-            torch.stack([z, -wz, wy]),
-            torch.stack([wz, z, -wx]),
-            torch.stack([-wy, wx, z]),
-        ]
+            torch.stack([z, -wz, wy], -1),
+            torch.stack([wz, z, -wx], -1),
+            torch.stack([-wy, wx, z], -1),
+        ],
+        -2,
     )
+
+
+def _sqnorm(w: torch.Tensor) -> torch.Tensor:
+    return torch.dot(w, w) if w.dim() == 1 else (w * w).sum(-1)
+
+
+def _per_matrix(c: torch.Tensor) -> torch.Tensor:
+    """A per-pose coefficient shaped to scale a (..., 3, 3) batch."""
+    return c if c.dim() == 0 else c[..., None, None]
+
+
+def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A @ x for one matrix and vector, or for a batch of them."""
+    return A @ x if x.dim() == 1 else (A @ x.unsqueeze(-1)).squeeze(-1)
 
 
 def _coeffs(theta2: torch.Tensor):
@@ -43,7 +61,7 @@ def _coeffs(theta2: torch.Tensor):
 
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues: exp of so(3) vector -> rotation matrix. Safe at w=0."""
-    a, b, _ = _coeffs(torch.dot(w, w))
+    a, b, _ = (_per_matrix(x) for x in _coeffs(_sqnorm(w)))
     W = hat(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
     return eye + a * W + b * (W @ W)
@@ -51,29 +69,29 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
 
 def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """exp of se(3) vector [omega, upsilon] -> (R, t) with t = V @ upsilon."""
-    w, u = xi[:3], xi[3:]
-    a, b, c = _coeffs(torch.dot(w, w))
+    w, u = xi[..., :3], xi[..., 3:]
+    a, b, c = (_per_matrix(x) for x in _coeffs(_sqnorm(w)))
     W = hat(w)
     WW = W @ W
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
     R = eye + a * W + b * WW
     V = eye + b * W + c * WW
-    return R, V @ u
+    return R, _mv(V, u)
 
 
 def compose(Ra, ta, Rb, tb):
     """(Ra,ta) ∘ (Rb,tb): first apply b, then a."""
-    return Ra @ Rb, Ra @ tb + ta
+    return Ra @ Rb, _mv(Ra, tb) + ta
 
 
 def inverse(R, t):
-    Rt = R.T
-    return Rt, -(Rt @ t)
+    Rt = R.mT
+    return Rt, -_mv(Rt, t)
 
 
 def apply(R, t, p):
-    """Transform points p (..., 3)."""
-    return p @ R.T + t
+    """Transform points p (..., 3) by one pose."""
+    return p @ R.mT + t
 
 
 def left_update(xi, R, t):
@@ -87,5 +105,5 @@ def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     polar decomposition). Float32 chains of hundreds of rotation products
     per frame otherwise contract det(R) exponentially."""
     for _ in range(2):
-        R = 0.5 * (3.0 * R - R @ (R.T @ R))
+        R = 0.5 * (3.0 * R - R @ (R.mT @ R))
     return R

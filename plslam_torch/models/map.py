@@ -67,6 +67,13 @@ class SlamMap:
         # mapping; the local-map harvest walks it
         self.kf_parent = np.full(cap.max_keyframes, -1, np.int32)
         self.kf_children: list[set[int]] = [set() for _ in range(cap.max_keyframes)]
+        # cull chain for trajectory healing (KeyFrame::mTcp, SetBadFlag
+        # tail): a culled keyframe's pose relative to its then-parent, so
+        # frames referenced to it re-express against a surviving ancestor
+        # (System::SaveTrajectoryTUM, System.cc:337-396)
+        self.kf_cull_parent = np.full(cap.max_keyframes, -1, np.int32)
+        self.kf_cull_Rcp = np.zeros((cap.max_keyframes, 3, 3), np.float32)
+        self.kf_cull_tcp = np.zeros((cap.max_keyframes, 3), np.float32)
         self.n_kf = 0
 
         # map points
@@ -141,6 +148,14 @@ class SlamMap:
     def scatter_line_descs_from(self, src_desc_dev, feats, lids):
         self._scatter_from(self.line_desc_arena(), src_desc_dev, feats, lids)
 
+    def scatter_point_desc_rows(self, pids, rows: torch.Tensor):
+        """arena[pids] = rows, in place on the device (the distinctive
+        descriptor refresh; the JAX package's ``models/map.py::_scatter_rows``)."""
+        _scatter_rows(self.point_desc_arena(), pids, rows)
+
+    def scatter_line_desc_rows(self, lids, rows: torch.Tensor):
+        _scatter_rows(self.line_desc_arena(), lids, rows)
+
     # ---------------------------------------------------------------- points
     def add_point(self, pos, desc, normal, min_d, max_d, first_kf) -> int:
         """``desc=None`` means device-managed: the caller scatters the row
@@ -162,6 +177,15 @@ class SlamMap:
         self.pt_found[pid] = 1
         self.pt_obs[pid].clear()
         return pid
+
+    def erase_point(self, pid: int):
+        if not self.pt_valid[pid]:
+            return
+        for kf, feat in self.pt_obs[pid].items():
+            if self.kf_pt_idx[kf, feat] == pid:
+                self.kf_pt_idx[kf, feat] = -1
+        self.pt_obs[pid].clear()
+        self.pt_valid[pid] = False
 
     def add_point_obs(self, pid: int, kf: int, feat: int):
         # a landmark observes a keyframe at ONE feature (MapPoint::
@@ -199,6 +223,15 @@ class SlamMap:
             self.ln_min_dist[lid] = d / 1.6
         return lid
 
+    def erase_line(self, lid: int):
+        if not self.ln_valid[lid]:
+            return
+        for kf, feat in self.ln_obs[lid].items():
+            if self.kf_ln_idx[kf, feat] == lid:
+                self.kf_ln_idx[kf, feat] = -1
+        self.ln_obs[lid].clear()
+        self.ln_valid[lid] = False
+
     def add_line_obs(self, lid: int, kf: int, feat: int):
         prev = self.ln_obs[lid].get(kf)
         if prev is not None and prev != feat and self.kf_ln_idx[kf, prev] == lid:
@@ -224,8 +257,117 @@ class SlamMap:
         self.n_kf += 1
         return kf
 
+    def device_frame(self, kf: int):
+        """FrameData of a keyframe on the map's device: the one tracking
+        kept, else uploaded once from the host snapshot and cached."""
+        fd = self.kf_frames_dev[kf]
+        if fd is None:
+            from .frame import FrameData
+
+            host = self.kf_frames[kf]
+            fd = FrameData(*(torch.as_tensor(getattr(host, f), device=self.device)
+                             for f in FrameData._fields))
+            self.kf_frames_dev[kf] = fd
+        return fd
+
+    def erase_keyframe(self, kf: int):
+        """KeyFrame::SetBadFlag (KeyFrame.cc:526-618): detach every
+        observation and retire the row; KF0 is never erased. Landmarks whose
+        first keyframe dies are re-anchored to another observer, and the
+        spanning tree is repaired (``_reparent_children``)."""
+        if kf == 0 or not self.kf_valid[kf]:
+            return
+        row = self.kf_pt_idx[kf]
+        for feat in np.nonzero(row >= 0)[0]:
+            pid = int(row[feat])
+            obs = self.pt_obs[pid]
+            if obs.get(kf) == int(feat):
+                obs.pop(kf)
+                if self.pt_valid[pid]:
+                    if not obs:
+                        self.erase_point(pid)
+                    elif self.pt_first_kf[pid] == kf:
+                        self.pt_first_kf[pid] = min(obs)
+        self.kf_pt_idx[kf] = -1
+        lrow = self.kf_ln_idx[kf]
+        for feat in np.nonzero(lrow >= 0)[0]:
+            lid = int(lrow[feat])
+            obs = self.ln_obs[lid]
+            if obs.get(kf) == int(feat):
+                obs.pop(kf)
+                if self.ln_valid[lid]:
+                    if not obs:
+                        self.erase_line(lid)
+                    elif self.ln_first_kf[lid] == kf:
+                        self.ln_first_kf[lid] = min(obs)
+        self.kf_ln_idx[kf] = -1
+        # freeze the relative pose to the (pre-reparenting) parent so the
+        # trajectory healer can chain through culled keyframes
+        parent = int(self.kf_parent[kf])
+        if parent < 0:
+            parent = 0  # KF0 is never erased
+        Rcp = self.kf_R[kf] @ self.kf_R[parent].T
+        self.kf_cull_parent[kf] = parent
+        self.kf_cull_Rcp[kf] = Rcp
+        self.kf_cull_tcp[kf] = self.kf_t[kf] - Rcp @ self.kf_t[parent]
+        self._reparent_children(kf)
+        self.kf_valid[kf] = False
+        self.kf_frames[kf] = None  # release the feature snapshots
+        self.kf_frames_dev[kf] = None
+
+    def update_spanning_tree(self, kf: int):
+        """Attach ``kf`` to its strongest covisible predecessor
+        (KeyFrame::UpdateConnections tail, KeyFrame.cc:443-451)."""
+        if kf == 0 or self.kf_parent[kf] >= 0:
+            return
+        counts = self.covisibility_counts(kf)
+        best, parent = 0, -1
+        for o, c in counts.items():
+            if o != kf and o < kf and self.kf_valid[o] and c > best:
+                best, parent = c, o
+        if parent < 0:  # no covisibility yet: previous surviving keyframe
+            prev = [o for o in range(kf) if self.kf_valid[o]]
+            parent = prev[-1] if prev else -1
+        if parent >= 0:
+            self.kf_parent[kf] = parent
+            self.kf_children[parent].add(kf)
+
+    def _reparent_children(self, kf: int):
+        """SetBadFlag reparenting (KeyFrame.cc:552-615): each child
+        re-attaches to its strongest covisible inside the candidate set
+        (the dying keyframe's parent, growing as children are adopted);
+        leftovers fall back to the dying keyframe's parent."""
+        parent = int(self.kf_parent[kf])
+        children = set(self.kf_children[kf])
+        cands = {parent} if parent >= 0 else set()
+        while children and cands:
+            best = (0, -1, -1)  # (weight, child, new_parent)
+            for ch in children:
+                for o, c in self.covisibility_counts(ch).items():
+                    if o in cands and c > best[0]:
+                        best = (c, ch, o)
+            if best[1] < 0:
+                break
+            _, ch, npar = best
+            self.kf_parent[ch] = npar
+            self.kf_children[npar].add(ch)
+            children.discard(ch)
+            cands.add(ch)
+        for ch in children:
+            self.kf_parent[ch] = parent
+            if parent >= 0:
+                self.kf_children[parent].add(ch)
+        if parent >= 0:
+            self.kf_children[parent].discard(kf)
+        self.kf_children[kf] = set()
+        self.kf_parent[kf] = -1
+
     def kf_camera_center(self, kf: int) -> np.ndarray:
         return -self.kf_R[kf].T @ self.kf_t[kf]
+
+    def set_kf_pose(self, kf: int, R, t):
+        self.kf_R[kf] = R
+        self.kf_t[kf] = t
 
     # ---------------------------------------------------------- covisibility
     def covisibility_counts(self, kf: int) -> dict[int, int]:
@@ -262,5 +404,20 @@ class SlamMap:
     def n_lines(self) -> int:
         return int(self.ln_valid.sum())
 
+    def point_ids(self) -> np.ndarray:
+        return np.nonzero(self.pt_valid)[0]
+
+    def line_ids(self) -> np.ndarray:
+        return np.nonzero(self.ln_valid)[0]
+
     def reset(self):
         self.__init__(self.cfg, self.device)
+
+
+def _scatter_rows(arena: torch.Tensor, ids, rows: torch.Tensor):
+    """arena[ids] = rows with ``index_copy_`` (no host sync). Ids may
+    repeat only with equal rows."""
+    if len(ids) == 0:
+        return
+    arena.index_copy_(0, torch.as_tensor(np.asarray(ids, np.int64), device=arena.device),
+                      rows.to(arena.device))

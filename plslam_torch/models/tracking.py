@@ -18,15 +18,18 @@ Keyframe decision/creation follows NeedNewKeyFrame / CreateNewKeyFrame
 (:1423-1744, RGB-D branch): close-point bookkeeping, depth-sorted new
 landmark creation, line creation from endpoint depths.
 
-This module covers the configuration without local mapping
-(``local_mapper=None``): keyframes still mint landmarks from depth and the
-local map is still harvested from covisibility. Local mapping, loop
-closing, relocalization and the mono/stereo sensors are later parts of the
-port (ROADMAP.md, Queue A) and raise ``NotImplementedError`` here.
+A local mapper (models.local_mapping, or its worker-thread wrapper in
+models.async_mapping) receives every new keyframe; its lock, when it has
+one, guards the tracker's map bookkeeping (Map::mMutexMapUpdate). Without
+one (``local_mapper=None``) keyframes still mint landmarks from depth and
+the local map is still harvested from covisibility. Loop closing,
+relocalization and the mono/stereo sensors are later parts of the port
+(ROADMAP.md, Queue A) and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -437,9 +440,6 @@ class Tracker:
             raise NotImplementedError(
                 f"sensor={sensor!r}: only RGB-D is ported (mono and stereo are "
                 "ROADMAP.md Queue A item 16)")
-        if local_mapper is not None:
-            raise NotImplementedError(
-                "local mapping is not ported yet (ROADMAP.md Queue A, slice 2)")
         if loop_closer is not None or voc is not None or kfdb is not None:
             raise NotImplementedError(
                 "loop closing / BoW are not ported yet (ROADMAP.md Queue A "
@@ -448,7 +448,10 @@ class Tracker:
         self.map = slam_map
         self.device = slam_map.device
         self.sensor = sensor
-        self.local_mapper = None
+        self.local_mapper = local_mapper
+        # map-update lock (Map::mMutexMapUpdate) of a mapper on a worker
+        # thread; a no-op without one
+        self._map_lock = getattr(local_mapper, "lock", None) or contextlib.nullcontext()
         self.loop_closer = None
         self.voc = None
         self.kfdb = None
@@ -458,6 +461,11 @@ class Tracker:
         self.last_kf = -1
         self.ref_kf = -1
         self.trajectory: list[tuple[float, np.ndarray, np.ndarray]] = []
+        # per frame (ref_kf, R_cr, t_cr): the pose relative to its reference
+        # keyframe (Tracking.cc:578-597 mlRelativeFramePoses); composed with
+        # the keyframe's current pose it heals the trajectory after local BA
+        # moves keyframes (healed_trajectory)
+        self.traj_refs: list[tuple[int, np.ndarray, np.ndarray]] = []
         self.n_lost_frames = 0
         self.debug: dict = {}
         dev = self.device
@@ -629,6 +637,9 @@ class Tracker:
     def reset(self):
         """Full system reset (Tracking::Reset, Tracking.cc:2271-2317)."""
         self.map.reset()
+        if self.local_mapper is not None:
+            self.local_mapper.recent_points.clear()
+            self.local_mapper.recent_lines.clear()
         self.state = NOT_INITIALIZED
         self.last_kf_id = -1
         self.last_kf = -1
@@ -637,8 +648,43 @@ class Tracker:
         self._has_vel = False
         self._lm_args = None
 
-    def _record_pose(self, timestamp: float, R: np.ndarray, t: np.ndarray):
+    def _record_pose(self, timestamp: float, R: np.ndarray, t: np.ndarray,
+                     ref: int | None = None):
+        """Append a frame pose, as tracked (absolute) and relative to the
+        reference keyframe (healable)."""
         self.trajectory.append((timestamp, R.copy(), t.copy()))
+        if ref is None:
+            ref = self.ref_kf
+        if ref >= 0:
+            # T_cr = T_cw ∘ T_wr with T_rw = the reference keyframe's pose now
+            Rr, tr = self.map.kf_R[ref], self.map.kf_t[ref]
+            Rcr = R @ Rr.T
+            tcr = t - Rcr @ tr
+        else:
+            Rcr, tcr = R.copy(), t.copy()
+        self.traj_refs.append((int(ref), Rcr.astype(np.float32), tcr.astype(np.float32)))
+
+    def healed_trajectory(self) -> list[tuple[float, np.ndarray, np.ndarray]]:
+        """(timestamp, R, t) per frame, each pose re-composed against the
+        CURRENT pose of its reference keyframe (SaveTrajectoryTUM,
+        System.cc:350-396). Culled reference keyframes chain through their
+        frozen cull-time relative poses to a surviving ancestor."""
+        m = self.map
+        out = []
+        for (ts, R_abs, t_abs), (ref, Rcr, tcr) in zip(self.trajectory, self.traj_refs):
+            if ref < 0 or ref >= m.kf_R.shape[0]:
+                out.append((ts, R_abs, t_abs))
+                continue
+            kf = ref
+            Rc, tc = Rcr, tcr
+            # walk the cull chain: T_cp = T_cr ∘ T_rp (KF0 is never culled)
+            while kf > 0 and not m.kf_valid[kf]:
+                tc = Rc @ m.kf_cull_tcp[kf] + tc
+                Rc = Rc @ m.kf_cull_Rcp[kf]
+                kf = int(m.kf_cull_parent[kf])
+            Rr, tr = m.kf_R[kf], m.kf_t[kf]
+            out.append((ts, (Rc @ Rr).astype(np.float32), (Rc @ tr + tc).astype(np.float32)))
+        return out
 
     # ------------------------------------------------------ initialization
     def _stereo_initialization(self, fd: FrameData, timestamp: float) -> bool:
@@ -666,7 +712,10 @@ class Tracker:
         self.last_pose = (R, t)
         self.last_pt_ids = pt_ids
         self.last_ln_ids = ln_ids
-        self._record_pose(timestamp, R, t)
+        self._record_pose(timestamp, R, t, ref=kf)
+        if self.local_mapper is not None:
+            self.local_mapper.on_new_landmarks(kf, pt_ids, ln_ids)
+            self.local_mapper.process_keyframe(kf)
         # device state
         self._prev_fd = fd
         self._R = torch.as_tensor(R, device=self.device)
@@ -705,44 +754,53 @@ class Tracker:
         if not (n_mi >= 10 and n_in >= cfg.tracking.min_inliers_local_map):
             return False
 
-        # host bookkeeping (ids resolved against the DISPATCH-time snapshot)
-        k = len(lp_ids)
-        lm_inlier = lm_inlier.copy()
-        lm_inlier[k:] = False
-        vis = lm_vis.copy()
-        vis[k:] = False
-        self.map.pt_visible[lp_ids[vis[:k]]] += 1
-        self.map.pt_found[lp_ids[lm_inlier[:k]]] += 1
-        cur_pt_ids = np.full(cfg.orb.max_keypoints, -1, np.int32)
-        sel = np.nonzero(lm_inlier[:k])[0]
-        cur_pt_ids[lm_feat[sel]] = lp_ids[sel]
-        kl = len(ll_ids)
-        lml_inlier = lml_inlier.copy()
-        lml_inlier[kl:] = False
-        cur_ln_ids = np.full(cfg.lines.max_lines, -1, np.int32)
-        lsel = np.nonzero(lml_inlier[:kl])[0]
-        cur_ln_ids[lml_feat[lsel]] = ll_ids[lsel]
-        self.map.ln_visible[ll_ids[lsel]] += 1
-        self.map.ln_found[ll_ids[lsel]] += 1
+        # host bookkeeping (ids resolved against the DISPATCH-time snapshot),
+        # under the map lock: a mapper thread edits the same arrays
+        with self._map_lock:
+            k = len(lp_ids)
+            lm_inlier = lm_inlier.copy()
+            lm_inlier[k:] = False
+            vis = lm_vis.copy()
+            vis[k:] = False
+            self.map.pt_visible[lp_ids[vis[:k]]] += 1
+            self.map.pt_found[lp_ids[lm_inlier[:k]]] += 1
+            cur_pt_ids = np.full(cfg.orb.max_keypoints, -1, np.int32)
+            sel = np.nonzero(lm_inlier[:k])[0]
+            cur_pt_ids[lm_feat[sel]] = lp_ids[sel]
+            kl = len(ll_ids)
+            lml_inlier = lml_inlier.copy()
+            lml_inlier[kl:] = False
+            cur_ln_ids = np.full(cfg.lines.max_lines, -1, np.int32)
+            lsel = np.nonzero(lml_inlier[:kl])[0]
+            cur_ln_ids[lml_feat[lsel]] = ll_ids[lsel]
+            self.map.ln_visible[ll_ids[lsel]] += 1
+            self.map.ln_found[ll_ids[lsel]] += 1
 
-        self.last_pose = (R, t)
-        self.last_pt_ids = cur_pt_ids
-        self.last_ln_ids = cur_ln_ids
-        self._record_pose(timestamp, R, t)
+            self.last_pose = (R, t)
+            self.last_pt_ids = cur_pt_ids
+            self.last_ln_ids = cur_ln_ids
+            self._record_pose(timestamp, R, t)
 
-        need = self._need_new_keyframe(tc, cc, n_in, frame_id=frame_id)
+            need = self._need_new_keyframe(tc, cc, n_in, frame_id=frame_id)
         if need:
             host = _host_frame(cfg, kp_xy_un, kp_octave, kp_depth, kp_valid,
                                ln_ep_un, ln_desc, ln_depth, ln_valid)
-            self._create_new_keyframe(fd, R, t, cur_pt_ids, cur_ln_ids, timestamp,
-                                      frame_id=frame_id, host=host)
+            with self._map_lock:
+                self._create_new_keyframe(fd, R, t, cur_pt_ids, cur_ln_ids, timestamp,
+                                          frame_id=frame_id, host=host)
+                # the spawning frame references its OWN keyframe, at identity
+                # by construction (Tracking.cc:1664): not recomputed from
+                # kf_R, which a BA inside process_keyframe may have moved
+                self.traj_refs[-1] = (int(self.last_kf), np.eye(3, dtype=np.float32),
+                                      np.zeros(3, np.float32))
             self._refresh_inl = n_in
         elif (frame_id - self._refresh_frame >= self.REFRESH_MAX_FRAMES
               or n_in < 0.5 * self._refresh_inl):
             # the reference re-harvests the local map EVERY frame
             # (UpdateLocalKeyFrames, Tracking.cc:1867-2035); a bounded
             # cadence + inlier-decay trigger is the pipelined equivalent
-            self._refresh_local_map(cur_pt_ids, cur_ln_ids, rebind=False)
+            with self._map_lock:
+                self._refresh_local_map(cur_pt_ids, cur_ln_ids, rebind=False)
             self._refresh_inl = n_in
         return True
 
@@ -934,6 +992,9 @@ class Tracker:
         self.last_kf_id = frame_id
         self.last_kf = kf
         self.ref_kf = kf
+        if self.local_mapper is not None:
+            self.local_mapper.on_new_landmarks(kf, new_pt, new_ln)
+            self.local_mapper.process_keyframe(kf)
         self.last_pt_ids = cur_pt_ids
         self.last_ln_ids = cur_ln_ids
         self._refresh_local_map(cur_pt_ids, cur_ln_ids, rebind=False)

@@ -4,7 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``. Libraries are cached in
 ``plslam_torch/_build/`` (listed in ``.gitignore``) under a hash of the
 source and the flags, so the first use in a fresh checkout builds them and
-later uses load them. Nothing is built at import time.
+later uses load them. Nothing is built at import time. Loading is
+serialised by a lock: the tracker and the local mapper's worker thread may
+both reach a kernel first.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +29,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -75,14 +79,15 @@ def build(names=KERNELS, verbose: bool = False) -> float:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if missing."""
-    lib = _loaded.get(name)
-    if lib is None:
-        path = lib_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
-    return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        return lib
 
 
 def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
@@ -90,8 +95,10 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     int, with its argument types set once."""
     fn = _functions.get((name, symbol))
     if fn is None:
-        fn = getattr(load(name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _functions[(name, symbol)] = fn
+        lib = load(name)
+        with _lock:
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _functions[(name, symbol)] = fn
     return fn

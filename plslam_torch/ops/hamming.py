@@ -7,7 +7,9 @@ hand-written kernel ``csrc/hamming_top2.cu``, which never materializes the
 (N, M) distance matrix; on CPU tensors it runs :func:`hamming_top2_plain`.
 The kernel chooses per 16 x 512 tile, on the device, between a sparse walk
 over the gated pairs and the tensor cores; :func:`dense_tiles` counts the
-tiles that took the tensor cores.
+tiles that took the tensor cores. ``hamming_top2_batched`` runs B such
+problems that share their queries (one candidate set against B keyframes)
+in one launch of the same kernel.
 
 Replaces the reference's per-pair popcount loop
 (``ORBmatcher::DescriptorDistance``, ORBmatcher.cc:2083-2104).
@@ -64,12 +66,54 @@ def hamming_top2_plain(q_desc, t_desc, gate):
     return best, idx, second
 
 
+def hamming_top2_batched_plain(q_desc, t_desc, gate):
+    """Plain PyTorch version of the batched launch: q_desc (N,32),
+    t_desc (B,M,32), gate (B,N,M) -> 3 x (B,N) int32."""
+    outs = [hamming_top2_plain(q_desc, t_desc[b], gate[b]) for b in range(t_desc.shape[0])]
+    if not outs:
+        e = torch.empty((0, q_desc.shape[0]), dtype=torch.int32, device=q_desc.device)
+        return e, e.clone(), e.clone()
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def _check(name, x, dtype, shape):
     if x.device.type != "cuda" or x.dtype != dtype or tuple(x.shape) != shape \
             or not x.is_contiguous():
         raise ValueError(f"hamming_top2: {name} must be a contiguous CUDA "
                          f"{dtype} tensor of shape {shape}, got "
                          f"{x.device} {x.dtype} {tuple(x.shape)}")
+
+
+def _launch(q_desc, t_desc, gate):
+    """Checks the tensors and launches the kernel on the current stream for
+    the B = t_desc.shape[0] problems of t_desc (B, M, 32), gate (B, N, M)."""
+    n, (batch, m) = q_desc.shape[0], t_desc.shape[:2]
+    _check("q_desc", q_desc, torch.uint8, (n, 32))
+    _check("t_desc", t_desc, torch.uint8, (batch, m, 32))
+    _check("gate", gate, torch.bool, (batch, n, m))
+    for name, x in (("q_desc", q_desc), ("t_desc", t_desc)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"hamming_top2: {name} must be 16-byte aligned")
+    if m >= 1 << 22:
+        raise ValueError(f"hamming_top2: at most 2^22 - 1 targets, got {m}")
+    if batch > 65535:
+        raise ValueError(f"hamming_top2_batched: at most 65535 problems, got {batch}")
+    best = torch.empty((batch, n), dtype=torch.int32, device=q_desc.device)
+    idx = torch.empty_like(best)
+    second = torch.empty_like(best)
+    if best.numel() == 0:
+        return best, idx, second, False
+    counter = _dense_counter(q_desc.device)
+    fn = cuda_build.function(
+        "hamming_top2", "hamming_top2_batched_launch",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+    with torch.cuda.device(q_desc.device):
+        err = fn(q_desc.data_ptr(), t_desc.data_ptr(), gate.data_ptr(), n, m, batch,
+                 best.data_ptr(), idx.data_ptr(), second.data_ptr(), counter.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hamming_top2 kernel launch failed: cudaError {err}")
+    return best, idx, second, True
 
 
 def hamming_top2(q_desc: torch.Tensor, t_desc: torch.Tensor, gate: torch.Tensor):
@@ -81,35 +125,28 @@ def hamming_top2(q_desc: torch.Tensor, t_desc: torch.Tensor, gate: torch.Tensor)
     :func:`hamming_top2_plain`; both give the same values."""
     if q_desc.device.type == "cpu":
         return hamming_top2_plain(q_desc, t_desc, gate)
-    n, m = q_desc.shape[0], t_desc.shape[0]
-    _check("q_desc", q_desc, torch.uint8, (n, 32))
-    _check("t_desc", t_desc, torch.uint8, (m, 32))
-    _check("gate", gate, torch.bool, (n, m))
-    for name, x in (("q_desc", q_desc), ("t_desc", t_desc)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"hamming_top2: {name} must be 16-byte aligned")
-    if m >= 1 << 22:
-        raise ValueError(f"hamming_top2: at most 2^22 - 1 targets, got {m}")
-    best = torch.empty(n, dtype=torch.int32, device=q_desc.device)
-    idx = torch.empty_like(best)
-    second = torch.empty_like(best)
-    if n == 0:
-        return best, idx, second
-    fn = cuda_build.function("hamming_top2", "hamming_top2_launch",
-                             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
-    counter = _dense_counter(q_desc.device)
-    with torch.cuda.device(q_desc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q_desc.data_ptr(), t_desc.data_ptr(), gate.data_ptr(), n, m,
-                 best.data_ptr(), idx.data_ptr(), second.data_ptr(),
-                 counter.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"hamming_top2 kernel launch failed: cudaError {err}")
-    hamming_top2.launches += 1
+    best, idx, second, launched = _launch(q_desc, t_desc[None], gate[None])
+    if launched:
+        hamming_top2.launches += 1
+    return best[0], idx[0], second[0]
+
+
+def hamming_top2_batched(q_desc: torch.Tensor, t_desc: torch.Tensor, gate: torch.Tensor):
+    """B gated Hamming top-2 problems that share their queries, in one
+    launch: q_desc (N,32) u8, t_desc (B,M,32) u8, gate (B,N,M) bool ->
+    (best, idx, second), each (B,N) int32, row b equal to
+    ``hamming_top2(q_desc, t_desc[b], gate[b])``. CPU tensors go through
+    :func:`hamming_top2_batched_plain`."""
+    if q_desc.device.type == "cpu":
+        return hamming_top2_batched_plain(q_desc, t_desc, gate)
+    best, idx, second, launched = _launch(q_desc, t_desc, gate)
+    if launched:
+        hamming_top2_batched.launches += 1
     return best, idx, second
 
 
 hamming_top2.launches = 0
+hamming_top2_batched.launches = 0
 
 _dense_counters: dict[torch.device, torch.Tensor] = {}
 

@@ -114,17 +114,18 @@ def lbd_descriptors(
 
 
 def lbd_distance_matrix(a_u8: torch.Tensor, b_u8: torch.Tensor) -> torch.Tensor:
-    """(N, M) int32 flip-invariant squared-L2 between quantized descriptors.
+    """(..., N, M) int32 flip-invariant squared-L2 between quantized
+    descriptors (..., N, 72) and (..., M, 72), over any leading batch.
 
     Normalized units: divide by 127^2 (config thresholds are stored in
     normalized squared-L2 — see LineConfig.desc_dist_th)."""
     a = a_u8.to(torch.float64)
     b = b_u8.to(torch.float64)
-    af = a[:, torch.as_tensor(_FLIP_PERM, device=a.device, dtype=torch.int64)]
+    af = a[..., torch.as_tensor(_FLIP_PERM, device=a.device, dtype=torch.int64)]
     na = (a * a).sum(-1)           # flip preserves the norm
     nb_ = (b * b).sum(-1)
-    d = na[:, None] + nb_[None, :] - 2 * (a @ b.T)
-    df = na[:, None] + nb_[None, :] - 2 * (af @ b.T)
+    d = na[..., :, None] + nb_[..., None, :] - 2 * (a @ b.mT)
+    df = na[..., :, None] + nb_[..., None, :] - 2 * (af @ b.mT)
     return torch.minimum(d, df).to(torch.int32)
 
 

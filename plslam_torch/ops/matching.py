@@ -143,3 +143,31 @@ def match_descriptors(
     if dedupe:
         m = dedupe_targets(m, desc_t.shape[0])
     return m
+
+
+def match_descriptors_batched(
+    desc_q: torch.Tensor,   # (Nq, 32) shared by the batch
+    desc_t: torch.Tensor,   # (B, Nt, 32)
+    gate: torch.Tensor,     # (B, Nq, Nt)
+    max_dist: int,
+    nn_ratio: float | None = None,
+    dedupe: bool = True,
+) -> MatchResult:
+    """:func:`match_descriptors` over B target sets in one kernel launch
+    (``hamming.hamming_top2_batched``); fields are (B, Nq), row b equal to
+    ``match_descriptors(desc_q, desc_t[b], gate[b], ...)``. Dedupe runs per
+    batch entry: target b*Nt + j of the flattened batch is target j of
+    entry b, and the dedupe key orders queries within an entry as alone."""
+    best, idx, second = hamming.hamming_top2_batched(desc_q, desc_t, gate)
+    ok = best <= max_dist
+    if nn_ratio is not None:
+        ok = ok & (best.float() < nn_ratio * second.float())
+    m = _masked(ok, idx, best)
+    if not dedupe:
+        return m
+    B, nt = desc_t.shape[0], desc_t.shape[1]
+    off = (torch.arange(B, dtype=torch.int32, device=idx.device) * nt)[:, None]
+    flat = dedupe_targets(MatchResult((m.idx + off).reshape(-1), m.dist.reshape(-1),
+                                      m.ok.reshape(-1)), B * nt)
+    ok = flat.ok.reshape(m.ok.shape)
+    return _masked(ok, m.idx, m.dist)

@@ -193,3 +193,49 @@ def test_hamming_kernel_rejects_bad_input(dev):
         hamming.hamming_top2(q, q, torch.ones(4, 4, dtype=torch.uint8, device=dev))
     with pytest.raises(ValueError):
         hamming.hamming_top2(q, q, torch.ones(4, 5, dtype=torch.bool, device=dev))
+
+
+@pytest.mark.parametrize("B", [1, 3, 10])
+@pytest.mark.parametrize("density", ["sparse", "dense", "empty"])
+def test_hamming_batched_equals_plain(dev, B, density):
+    """One launch for B problems sharing their queries equals B plain calls;
+    B = 1 equals the unbatched kernel. Each problem has its own twins, so a
+    wrong per-problem stride shows as a wrong idx."""
+    n, m = 200, 777
+    rng, q, _ = _hamming_case(dev, n, m, 100 + B)
+    t = torch.as_tensor(rng.integers(0, 256, (B, m, 32), dtype=np.uint8), device=dev)
+    for b in range(B):
+        t[b, 50 + b:70 + b] = q[:20]
+    p = {"sparse": 0.02, "dense": 1.0, "empty": 0.0}[density]
+    gate = torch.as_tensor(rng.random((B, n, m)) < p, device=dev)
+    if density != "empty":
+        for b in range(B):
+            gate[b, :20, 50 + b:70 + b] = True
+        gate[:, 7] = False
+    before = hamming.hamming_top2_batched.launches
+    hamming.dense_tiles()
+    got = hamming.hamming_top2_batched(q, t, gate)
+    tiles = hamming.dense_tiles()
+    assert hamming.hamming_top2_batched.launches == before + 1
+    assert (tiles > 0) == (density == "dense")
+    want = hamming.hamming_top2_batched_plain(q, t, gate)
+    for a, w in zip(got, want):
+        assert a.shape == (B, n)
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    if density != "empty":
+        rows = np.array([i for i in range(20) if i != 7])  # row 7 has nothing gated
+        idx = got[1].cpu().numpy()
+        assert (idx[:, rows] == 50 + np.arange(B)[:, None] + rows[None]).all()
+        assert (idx[:, 7] == -1).all()
+    if B == 1:
+        for a, w in zip(got, hamming.hamming_top2(q, t[0], gate[0])):
+            torch.testing.assert_close(a[0], w, rtol=0, atol=0)
+
+
+def test_hamming_batched_rejects_bad_input(dev):
+    q = torch.zeros(4, 32, dtype=torch.uint8, device=dev)
+    t = torch.zeros(2, 5, 32, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        hamming.hamming_top2_batched(q, t, torch.ones(2, 4, 4, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError):
+        hamming.hamming_top2_batched(q, t, torch.ones(3, 4, 5, dtype=torch.bool, device=dev))

@@ -200,7 +200,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         ttracking.Tracker(cfg, m, sensor="mono")
     with pytest.raises(NotImplementedError):
-        ttracking.Tracker(cfg, m, local_mapper=object())
+        ttracking.Tracker(cfg, m, loop_closer=object())
     tr = ttracking.Tracker(cfg, m)
     assert tr._try_relocalize(0.0) is False  # no vocabulary / database
     with pytest.raises(NotImplementedError):
