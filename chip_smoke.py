@@ -15,7 +15,11 @@ Phases, one line each:
                Hamming at the local mapper's shapes, with gates built as
                the mapper builds them from the room's keyframes: forward
                fusion 4096x1024, reverse fusion as ONE batched launch of
-               10 x 2048x1024, an epipolar triangulation gate 1024x1024.
+               10 x 2048x1024, an epipolar triangulation gate 1024x1024;
+               and at relocalization's shape, a frame's 1024 features
+               against a keyframe's 1024 with the dense gate kp_valid x
+               has_point. Each Hamming shape also times torch.matmul on the
+               unpacked bits, the library yardstick.
   3. main    — the 150-frame synthetic room (640x480 RGB-D, points+lines)
                through plslam_torch's Tracker with local_mapper=None, with
                the launch counts that prove both kernels ran on the path,
@@ -28,9 +32,24 @@ Phases, one line each:
                launch and run counts that prove fusion, the batched Hamming
                launch and BA ran, fps, latency, and ATE as tracked and as
                healed against the keyframes BA moved.
+  5. reloc   — relocalization and localization-only tracking, through
+               Tracker(cfg, m, local_mapper=LocalMapper(cfg, m, kfdb=kfdb),
+               voc=voc, kfdb=kfdb) with the port's default vocabulary and
+               no lines. Blackout: 15 tracked frames, 4 blackout frames
+               (uniform gray, no depth), then views seen before, at the
+               room's speed and at twice it; the tracker must be LOST after
+               the blackout, OK again within 5 return frames, within 5 cm
+               of ground truth, with Hamming launches made by
+               relocalization; ms per LOST frame, and the stages of one
+               relocalization (BoW + database query, match, Horn and EPnP
+               RANSAC, pose LM). Localization-only: map 60 frames of an
+               orbit, erase the landmarks of the middle keyframes, switch
+               to only_tracking with local BA off and replay the orbit; VO
+               mode must engage, no frame may be LOST, the map must be
+               reacquired, no keyframe minted, the final pose within 30 cm.
 Then a JSON line of per-kernel numbers (launches: the mapping phase, which
-is bench.py's path; the main phase's beside them), the card's name and
-power limit, and as the last line {"ok": true, "device": {...}}.
+is bench.py's path; the main and reloc phases' beside them), the card's
+name and power limit, and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without CUDA, when the package is
 missing, or when any phase fails.
@@ -77,6 +96,8 @@ REPLACES = {"fast_score_nms": "ops/pallas_fast.py:120",
             "hamming_top2": "ops/pallas_matching.py:116"}
 N_FRAMES = 150  # bench.py's sequence
 ATE_LIMITS_M = (0.012, 0.030)  # RMSE, max
+RELOC_LIMITS = (5, 0.05)  # return frames before OK (0-based), centre error (m)
+VO_ERR_M = 0.30  # localization-only leg: final camera-centre error
 REPS = 50
 
 
@@ -331,9 +352,7 @@ def check_hamming(cfg, frames, dev):
         t_k, d_k = timings(lambda: hamming.hamming_top2(qq, tt_, gg))
         hamming.dense_tiles()
         t_p, d_p = timings(lambda: hamming.hamming_top2_plain(qq, tt_, gg))
-        qb = hamming.unpack_bits(qq).float()
-        tb = hamming.unpack_bits(tt_).float().T.contiguous()
-        t_l, d_l = timings(lambda: torch.matmul(qb, tb))
+        t_l, d_l = matmul_yardstick(qq, tt_)
         b, by = bound(32 * n + 32 * m + n * m + 12 * n, HAMMING_OPS_PER_PAIR * nnz,
                       INT8_TC_OPS_S)
         log(f"  hamming_top2 {name}: gated {nnz} pairs, {tiles} of "
@@ -396,6 +415,20 @@ def _landmarks(cfg, kfs, cap):
             torch.arange(cap, device=dev) < k)
 
 
+def matmul_yardstick(q, t):
+    """(eager ms, device ms) of torch.matmul on the unpacked bits of the
+    queries (N, 256) and targets ((B,) 256, M): the library call that
+    computes the same inner products (a distance is |q| + |t| - 2 q.t)."""
+    import torch
+
+    from plslam_torch.ops import hamming
+
+    qb = hamming.unpack_bits(q).float()
+    tb = hamming.unpack_bits(t.reshape(-1, 32)).float().reshape(t.shape[:-1] + (256,))
+    tb = tb.mT.contiguous()
+    return timings(lambda: torch.matmul(qb, tb))
+
+
 def check_mapping_shapes(cfg, frames, poses, dev):
     """Hamming top-2 at the local mapper's three shapes, gates built as the
     mapper builds them (models/local_mapping.py, models/triangulation.py)
@@ -453,16 +486,71 @@ def check_mapping_shapes(cfg, frames, poses, dev):
         t_k, d_k = timings(lambda: fn(q, t, gate))
         hamming.dense_tiles()
         t_p, d_p = timings(lambda: plain(q, t, gate))
+        t_l, d_l = matmul_yardstick(q, t)
         b, by = bound(gate.numel() + 32 * n + 32 * batch * m + 12 * batch * n,
                       HAMMING_OPS_PER_PAIR * nnz, INT8_TC_OPS_S)
         log(f"  {fn_name} {name}: gated {nnz} pairs, {int((got[0] <= 50).sum())} rows "
             f"within the fusion distance, {tiles} of {batch * -(-n // 16) * -(-m // 512)} tiles "
             f"on the tensor cores; kernel {t_k:.4f} ms (device {d_k:.4f}), plain {t_p:.4f} ms "
-            f"(device {d_p:.4f}), bound {b * 1e3:.3f} us ({by})")
+            f"(device {d_p:.4f}), matmul on unpacked bits {t_l:.4f} ms (device {d_l:.4f}), "
+            f"bound {b * 1e3:.3f} us ({by})")
         out.append(dict(shape=name, launch=fn_name, gated_pairs=nnz, dense_tiles=tiles,
                         ms=t_k, device_ms=d_k, plain_ms=t_p, plain_device_ms=d_p,
-                        bound_ms=b, bound_by=by))
+                        library_ms=t_l, library_device_ms=d_l, bound_ms=b, bound_by=by))
     return out
+
+
+def check_reloc_shape(cfg, frames, dev):
+    """Hamming top-2 at relocalization's shape (models/relocalization.py):
+    a frame's 1024 features against a keyframe's 1024, gate kp_valid x
+    has_point, where the keyframe is the room's first frame and has_point
+    marks its valid features with depth (the map points the tracker mints
+    from it at initialization). The gate is dense: every tile with more
+    gated pairs than the kernel's threshold must take the tensor cores.
+    Equal to the plain version exactly."""
+    import torch
+
+    from plslam_torch.ops import hamming
+
+    fd_k, _, _ = _keyframe(cfg, frames[0], (np.eye(3), np.zeros(3)), dev)
+    fd_q, _, _ = _keyframe(cfg, frames[60], (np.eye(3), np.zeros(3)), dev)
+    has = fd_k.kp_valid & (fd_k.kp_depth > 0)
+    gate = fd_q.kp_valid[:, None] & has[None, :]
+    q, t = fd_q.kp_desc, fd_k.kp_desc
+    hamming.dense_tiles()
+    got = hamming.hamming_top2(q, t, gate)
+    tiles = hamming.dense_tiles()
+    want = hamming.hamming_top2_plain(q, t, gate)
+    torch.cuda.synchronize()
+    for a, b, what in zip(got, want, ("best", "idx", "second")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"hamming_top2 {what} differs at the relocalization shape: "
+                                 f"{(a != b).sum().item()} rows")
+    n, m = gate.shape
+    n_tiles = -(-n // 16) * -(-m // 512)
+    # a 16 x 512 tile with more than the kernel's threshold of gated pairs
+    # takes the tensor cores; the padded rows of the last tiles hold no
+    # valid keypoint, so those may stay on the sparse walk
+    padded = torch.nn.functional.pad(gate, (0, (-m) % 512, 0, (-n) % 16)).int()
+    per_tile = padded.reshape(-(-n // 16), 16, -(-m // 512), 512).sum((1, 3))
+    want_tiles = int((per_tile > hamming.dense_min_pairs()).sum())
+    require(tiles == want_tiles and tiles >= n_tiles - 8,
+            f"relocalization gate: {tiles} of {n_tiles} tiles dense, {want_tiles} expected")
+    nnz = int(gate.sum())
+    t_k, d_k = timings(lambda: hamming.hamming_top2(q, t, gate))
+    hamming.dense_tiles()
+    t_p, d_p = timings(lambda: hamming.hamming_top2_plain(q, t, gate))
+    t_l, d_l = matmul_yardstick(q, t)
+    b, by = bound(gate.numel() + 32 * n + 32 * m + 12 * n, HAMMING_OPS_PER_PAIR * nnz,
+                  INT8_TC_OPS_S)
+    log(f"  hamming_top2 {n}x{m} relocalization (dense gate kp_valid x has_point): gated "
+        f"{nnz} pairs, {tiles} of {n_tiles} tiles on the tensor cores; kernel {t_k:.4f} ms "
+        f"(device {d_k:.4f}), plain {t_p:.4f} ms (device {d_p:.4f}), matmul on unpacked bits "
+        f"{t_l:.4f} ms (device {d_l:.4f}), bound {b * 1e3:.3f} us ({by})")
+    return dict(shape=f"{n}x{m} relocalization, dense gate", launch="hamming_top2",
+                gated_pairs=nnz, dense_tiles=tiles, ms=t_k, device_ms=d_k, plain_ms=t_p,
+                plain_device_ms=d_p, library_ms=t_l, library_device_ms=d_l, bound_ms=b,
+                bound_by=by)
 
 
 def floors(cfg, dev):
@@ -651,6 +739,205 @@ def rescue_step(cfg, tracker, frame, dev):
                 hamming_dense_tiles=tiles, pose_err_m=dt)
 
 
+def orbit_poses(n, radius=0.45):
+    """World-to-camera poses of a camera orbiting the room's centre and
+    yawing a full turn in n - 30 frames (tests/test_loop_closing.py's
+    orbit)."""
+    poses = []
+    for i in range(n):
+        a = 2 * np.pi * i / (n - 30)
+        c = np.array([radius * np.sin(a), 0.0, 1.25 + radius * np.cos(a)], np.float32)
+        ca, sa = np.cos(a), np.sin(a)
+        R = np.array([[ca, 0, sa], [0, 1, 0], [-sa, 0, ca]], np.float32).T  # R_cw
+        poses.append((R, (-R @ c).astype(np.float32)))
+    return poses
+
+
+def _render(scene, cam, pose, f):
+    gray, depth = scene.render(cam, *pose)
+    return (np.clip(gray, 0, 255).astype(np.uint8),
+            np.clip(depth * f, 0, 65535).astype(np.uint16))
+
+
+def _reloc_tracker(cfg, dev):
+    """Tracker with a synchronous LocalMapper, the port's default vocabulary
+    (plslam_torch/bow/vocab_synth.npz) and a keyframe database."""
+    from plslam_torch.bow.database import KeyFrameDatabase
+    from plslam_torch.bow.vocabulary import Vocabulary
+    from plslam_torch.models.local_mapping import LocalMapper
+    from plslam_torch.models.map import SlamMap
+    from plslam_torch.models.tracking import Tracker
+
+    voc = Vocabulary.load(device=dev)
+    m = SlamMap(cfg, device=dev)
+    kfdb = KeyFrameDatabase(voc, max_kf=cfg.capacity.max_keyframes)
+    mapper = LocalMapper(cfg, m, kfdb=kfdb)
+    return Tracker(cfg, m, local_mapper=mapper, voc=voc, kfdb=kfdb), mapper
+
+
+def _gauge_error(pose, poses, k):
+    """Camera-centre error of ``pose`` against ground-truth pose k in the
+    map's gauge (world = the first camera)."""
+    R0, t0 = poses[0]
+    Rg, tg = poses[k]
+    Rrel = Rg @ R0.T
+    trel = tg - Rrel @ t0
+    R, t = pose
+    return float(np.linalg.norm(-(R.T @ t) + Rrel.T @ trel))
+
+
+def reloc_stages(cfg, tracker):
+    """ms of each stage of one relocalization of the frame the tracker just
+    relocalized on, against its first candidate (10 calls each, eager,
+    CUDA events): BoW transform + database query, match, Horn RANSAC,
+    EPnP RANSAC (the fallback, which the room never needs: timed on the
+    same matches), pose LM."""
+    from plslam_torch.bow.vocabulary import sparse_bow
+    from plslam_torch.geometry.projection import backproject
+    from plslam_torch.models import relocalization as rl
+    from plslam_torch.optim import epnp, horn
+
+    fd, m = tracker._prev_fd, tracker.map
+    dev = m.device
+
+    def query():
+        _, bow = tracker.voc.transform(fd.kp_desc, fd.kp_valid)
+        return tracker.kfdb.detect_reloc_candidates(sparse_bow(bow), m)
+
+    kf = query()[0]
+    has, ptw = rl.candidate_inputs(m, kf)
+    dkf = m.device_frame(kf)
+    mt = rl.reloc_match(cfg, fd, dkf.kp_desc, dkf.kp_angle, has)
+    R0, t0, dst_w = rl.reloc_solve(cfg, fd, mt, ptw, rl.reloc_generator(dev, 0, 0))
+    src = backproject(cfg.camera, fd.kp_xy_un, fd.kp_depth)
+    ok_d = mt.ok & (fd.kp_depth > 0)
+    ms = lambda fn: cuda_ms(fn, reps=10, warm=2)  # noqa: E731
+    return dict(
+        bow_and_query_ms=ms(query),
+        match_ms=ms(lambda: rl.reloc_match(cfg, fd, dkf.kp_desc, dkf.kp_angle, has)),
+        horn_ms=ms(lambda: horn.ransac_align(src, dst_w, ok_d, rl.reloc_generator(dev, 0, 0))),
+        epnp_ms=ms(lambda: epnp.ransac_epnp(cfg.camera, dst_w, fd.kp_xy_un, mt.ok,
+                                            rl.reloc_generator(dev, 0, 1))),
+        pose_lm_ms=ms(lambda: rl.reloc_refine(cfg, fd, mt, dst_w, R0, t0)),
+        matches=int(mt.ok.sum()), depth_pairs=int(ok_d.sum()))
+
+
+def blackout(cfg, dev, fast):
+    """One blackout scenario of tests/test_relocalization.py at full size:
+    15 tracked frames, 4 blackout frames, then views seen before (two poses
+    back a frame when ``fast``)."""
+    import torch
+
+    from plslam_torch.models.tracking import LOST, OK
+    from plslam_torch.ops import hamming
+    from plslam_torch.utils.synthetic import RoomScene, smooth_trajectory
+
+    scene = RoomScene(0)
+    poses = smooth_trajectory(30)[:15] if fast else smooth_trajectory(60)[:30]
+    f = cfg.tracking.depth_map_factor
+    tracker, _ = _reloc_tracker(cfg, dev)
+    m = tracker.map
+    for i in range(15):
+        tracker.process(*_render(scene, cfg.camera, poses[i], f), i / 30.0)
+    require(tracker.state == OK and m.n_kf >= 2, f"state {tracker.state}, {m.n_kf} keyframes")
+    h, w = cfg.camera.height, cfg.camera.width
+    for i in range(15, 19):
+        tracker.process(np.full((h, w), 120, np.uint8), np.zeros((h, w), np.uint16), i / 30.0)
+    require(tracker.state == LOST, f"state {tracker.state} after the blackout")
+    _reset_counts()
+    lost_ms = []
+    for j in range(8):
+        k = max(10 - j * (2 if fast else 1), 2)
+        g, d = _render(scene, cfg.camera, poses[k], f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tracker.process(g, d, (19 + j) / 30.0)
+        torch.cuda.synchronize()
+        lost_ms.append((time.perf_counter() - t0) * 1e3)
+        if tracker.state == OK:
+            break
+    launches = hamming.hamming_top2.launches
+    require(tracker.state == OK and j <= RELOC_LIMITS[0],
+            f"not relocalized within {RELOC_LIMITS[0] + 1} return frames")
+    err = _gauge_error(out, poses, k)
+    require(err < RELOC_LIMITS[1], f"relocalized {err * 100:.2f} cm from ground truth")
+    require(launches >= 1, "relocalization launched no hamming_top2")
+    return dict(relocalized_at_return_frame=j, center_error_cm=err * 100,
+                hamming_launches=launches, lost_frame_ms=lost_ms, keyframes=m.n_kf,
+                speed_est_m=tracker._speed_est, stages=reloc_stages(cfg, tracker))
+
+
+def localization_leg(cfg, dev):
+    """Localization-only mode (tests/test_vo_mode.py): map 60 frames of the
+    orbit, erase the landmarks anchored in the middle band of keyframes
+    (at most one observer outside it), then replay the orbit with
+    only_tracking on and local BA off."""
+    import torch
+
+    from plslam_torch.models.tracking import LOST, OK
+    from plslam_torch.ops import hamming
+    from plslam_torch.utils.synthetic import RoomScene
+
+    scene = RoomScene(3)
+    poses = orbit_poses(150)
+    n_map = 60
+    f = cfg.tracking.depth_map_factor
+    frames = [_render(scene, cfg.camera, p, f) for p in poses[:n_map]]
+    tracker, mapper = _reloc_tracker(cfg, dev)
+    m = tracker.map
+    for i, (g, d) in enumerate(frames):
+        tracker.process(g, d, i / 30.0)
+    tracker.flush()
+    n_kf = m.n_kf
+    require(tracker.state == OK and n_kf >= 6, f"mapping: state {tracker.state}, {n_kf} keyframes")
+    band = set(range(n_kf // 3, 2 * n_kf // 3 + 1))
+    erased = 0
+    for pid in m.point_ids():
+        obs = m.pt_obs[pid]
+        nb = sum(1 for k in obs if k in band)
+        if obs and nb > 0 and len(obs) - nb <= 1:
+            m.erase_point(pid)
+            erased += 1
+    require(erased > 50, f"only {erased} points in the band")
+    tracker.only_tracking = True
+    mapper.enable_ba = False
+    tracker._refresh_local_map(tracker.last_pt_ids, tracker.last_ln_ids)
+    _reset_counts()
+    states, vo_frames = [], []
+    t0 = time.perf_counter()
+    for j, i in enumerate(range(2, n_map - 2)):
+        tracker.process(*frames[i], (n_map + j) / 30.0)
+        states.append(tracker.state)
+        if tracker.vo_mode:
+            vo_frames.append(i)
+    tracker.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = _gauge_error(tracker.last_pose, poses, n_map - 3)
+    require(vo_frames, "vo_mode never engaged in the de-mapped sector")
+    require(LOST not in states, "the tracker went LOST despite the VO fallback")
+    require(tracker.state == OK and not tracker.vo_mode, "the map was not reacquired")
+    require(m.n_kf == n_kf, f"localization mode minted keyframes: {n_kf} -> {m.n_kf}")
+    require(err < VO_ERR_M, f"final pose {err * 100:.1f} cm from ground truth")
+    return dict(keyframes=n_kf, erased_points=erased, replayed=len(states),
+                vo_frames=vo_frames, final_error_cm=err * 100, fps=len(states) / wall,
+                hamming_launches=hamming.hamming_top2.launches)
+
+
+def reloc_phase(cfg, dev):
+    """Phase reloc: both blackout scenarios and the localization-only leg,
+    with lines off as the scenarios of the JAX package's tests run."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, use_lines=False)
+    t0 = time.perf_counter()
+    res = dict(blackout=blackout(cfg, dev, fast=False),
+               blackout_fast=blackout(cfg, dev, fast=True),
+               localization=localization_leg(cfg, dev))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -675,9 +962,10 @@ def main() -> int:
 
     kernels = [check_fast(cfg, frames, dev), check_hamming(cfg, frames, dev)]
     kernels[1]["mapping_shapes"] = check_mapping_shapes(cfg, frames, poses, dev)
+    kernels[1]["reloc_shape"] = check_reloc_shape(cfg, frames, dev)
     floors(cfg, dev)
     log("phase kernels: ok, both kernels exactly equal to their plain versions, "
-        "Hamming also batched and at the mapper's shapes")
+        "Hamming also batched, at the mapper's shapes and at relocalization's")
 
     res = main_path(cfg, frames, poses, dev)
     log("phase main: ok, " + json.dumps(res))
@@ -689,6 +977,10 @@ def main() -> int:
                               + mres["launches"]["hamming_top2_batched"])
     kernels[1]["launches_batched"] = mres["launches"]["hamming_top2_batched"]
     kernels[1]["launches_main_phase"] = res["launches"]["hamming_top2"]
+    rres = reloc_phase(cfg, dev)
+    log("phase reloc: ok, " + json.dumps(rres))
+    kernels[1]["launches_reloc_phase"] = (rres["blackout"]["hamming_launches"]
+                                          + rres["blackout_fast"]["hamming_launches"])
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

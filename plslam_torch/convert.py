@@ -10,6 +10,10 @@ configuration and map state, as plain Python / numpy values:
   arenas.
 - :func:`ba_problem_from_numpy` builds a local-BA problem from a JAX
   ``BAProblem``'s arrays, so that both packages solve the same problem.
+- :func:`vocabulary_from_numpy` builds a :class:`Vocabulary` from a JAX
+  ``Vocabulary``'s node descriptors and idf, and :func:`kfdb_from_numpy` a
+  :class:`KeyFrameDatabase` from a JAX database's per-keyframe sparse bows,
+  so that both packages start from one database as from one map.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .bow.database import KeyFrameDatabase
+from .bow.vocabulary import Vocabulary
 from .config import (CloudConfig, LineConfig, LoopConfig, MapCapacity,
                      MappingConfig, MatcherConfig, OrbConfig, SlamConfig,
                      TrackingConfig)
@@ -101,3 +107,22 @@ def ba_problem_from_numpy(arrays: dict, device="cuda") -> local_ba.BAProblem:
             a = a.astype(np.int64)
         out[name] = torch.from_numpy(a).to(device)
     return local_ba.BAProblem(**out)
+
+
+def vocabulary_from_numpy(node_desc, idf, device="cuda") -> Vocabulary:
+    """A :class:`Vocabulary` on ``device`` from per-level node descriptors
+    ((k^(l+1), 32) uint8 each) and the leaf idf (k^L,)."""
+    return Vocabulary([np.asarray(d, np.uint8) for d in node_desc],
+                      np.asarray(idf, np.float32), device=device)
+
+
+def kfdb_from_numpy(voc: Vocabulary, bows, max_kf: int) -> KeyFrameDatabase:
+    """A :class:`KeyFrameDatabase` of ``max_kf`` slots holding, for keyframe
+    ``kf``, the sparse bow ``bows[kf]`` = (word ids, values) (a JAX
+    database's ``get_bow(kf)``), or nothing where it is None. Keyframes are
+    added in index order."""
+    db = KeyFrameDatabase(voc, max_kf=max_kf)
+    for kf, bow in enumerate(bows):
+        if bow is not None and bow[0] is not None:
+            db.add(kf, (np.asarray(bow[0]), np.asarray(bow[1])))
+    return db

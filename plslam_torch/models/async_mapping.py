@@ -49,6 +49,14 @@ class AsyncLocalMapper:
 
     # the LocalMapper interface the tracker uses ---------------------------
     @property
+    def enable_ba(self):
+        return self.inner.enable_ba
+
+    @enable_ba.setter
+    def enable_ba(self, v):
+        self.inner.enable_ba = v
+
+    @property
     def recent_points(self):
         return self.inner.recent_points
 

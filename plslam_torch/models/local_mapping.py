@@ -133,12 +133,15 @@ def _pad(arr, n, shape=(), dtype=np.float32):
 
 
 class LocalMapper:
-    def __init__(self, cfg: SlamConfig, slam_map: SlamMap, kfdb=None):
-        if kfdb is not None:
-            raise NotImplementedError(
-                "the keyframe database comes with BoW (ROADMAP.md Queue A item 11)")
+    def __init__(self, cfg: SlamConfig, slam_map: SlamMap, enable_ba: bool = True,
+                 kfdb=None):
         self.cfg = cfg
         self.map = slam_map
+        # local BA on/off: localization-only mode switches it off
+        # (System::ActivateLocalizationMode, System.cc:129-140)
+        self.enable_ba = enable_ba
+        # keyframe database, if any: a culled keyframe leaves it
+        self.kfdb = kfdb
         self.recent_points: list[tuple[int, int]] = []  # (pid, created_at_kf)
         self.recent_lines: list[tuple[int, int]] = []
         # Map::mMutexMapUpdate: held per stage, never across BA iterations
@@ -173,7 +176,7 @@ class LocalMapper:
         self.triangulator.create_new_points(kf, mapper=self, lock=self.lock)
         triangulation.create_new_lines(self.cfg, self.map, kf, mapper=self, lock=self.lock)
         self.fuse(kf)
-        if self.map.n_kf > 2:
+        if self.enable_ba and self.map.n_kf > 2:
             self.run_local_ba(kf)
         with self.lock:
             self.cull_keyframes(kf)
@@ -246,6 +249,8 @@ class LocalMapper:
             if n_pts > 0 and n_red > self.cfg.mapping.kf_culling_redundancy * n_pts:
                 sel = (row >= 0) & m.pt_valid[p]
                 m.erase_keyframe(ckf)
+                if self.kfdb is not None:
+                    self.kfdb.erase(ckf)
                 # later candidates must not count the erased keyframe
                 np.subtract.at(hist, (row[sel], np.clip(host.kp_octave[sel].astype(np.int32),
                                                         0, n_lv - 1)), 1)

@@ -7,7 +7,8 @@
   test sits within 1e-3 px of the window edge (float32 rounding).
 - Landmark culling, keyframe culling and the spanning tree: the map state
   equals JAX's after the same calls (the scenes of tests/test_kf_culling.py
-  and tests/test_spanning_tree.py).
+  and tests/test_spanning_tree.py); a culled keyframe leaves the keyframe
+  database in both packages.
 - ``LocalMapper.process_keyframe`` on the third keyframe of a JAX-built
   320x240 run (carried by ``plslam_torch.convert``): >= 98% of the valid
   point ids are shared and keyframe poses agree within 1e-3 m. Local BA runs
@@ -30,7 +31,9 @@ from plslam_tpu.models import local_mapping as jlm
 from plslam_tpu.models import tracking as jtracking
 from plslam_tpu.models.map import HostFrame as JHostFrame
 from plslam_tpu.models.map import SlamMap as JSlamMap
+from plslam_tpu.bow.database import KeyFrameDatabase as JKeyFrameDatabase
 from plslam_torch import convert
+from plslam_torch.bow.database import KeyFrameDatabase
 from plslam_torch.models import distinctive as tdist
 from plslam_torch.models import local_mapping as tlm
 from test_kf_culling import _build_map, _FakeFrame
@@ -205,6 +208,25 @@ def test_keyframe_culling_equals_jax(scene):
         assert not tm.kf_valid[1:4].all() and tm.kf_valid[0] and tm.kf_valid[4]
     else:
         assert tm.kf_valid[:jm.n_kf].all()
+
+
+def test_keyframe_culling_erases_from_the_database():
+    jm, _ = _build_map(JCFG, n_kf=5)
+    for k in range(1, jm.n_kf):
+        jm.update_spanning_tree(k)
+    tm = _to_torch(jm)
+    jdb, tdb = JKeyFrameDatabase(None, max_kf=8), KeyFrameDatabase(None, max_kf=8)
+    for k in range(jm.n_kf):  # a word per keyframe and one they share
+        bow = (np.array([0, 10 + k]), np.array([0.5, 0.5], np.float32))
+        jdb.add(k, bow)
+        tdb.add(k, bow)
+    jlm.LocalMapper(JCFG, jm, enable_ba=False, kfdb=jdb).cull_keyframes(4)
+    tlm.LocalMapper(TCFG, tm, kfdb=tdb).cull_keyframes(4)
+    _assert_maps_equal(jm, tm)
+    assert not tm.kf_valid[:5].all()
+    np.testing.assert_array_equal(tdb.has, jdb.has)
+    np.testing.assert_array_equal(tdb.has[:5], tm.kf_valid[:5])
+    assert sorted(tdb._inv[0]) == np.nonzero(tm.kf_valid[:5])[0].tolist()
 
 
 def test_landmark_culling_equals_jax():

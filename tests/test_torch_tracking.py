@@ -30,6 +30,8 @@ from plslam_tpu.geometry.projection import Camera as JCamera
 from plslam_tpu.models import tracking as jtracking
 from plslam_tpu.models.map import SlamMap as JSlamMap
 from plslam_torch import convert
+from plslam_torch.bow.database import KeyFrameDatabase
+from plslam_torch.bow.vocabulary import Vocabulary
 from plslam_torch.models import tracking as ttracking
 from plslam_torch.models.frame import FrameData
 from plslam_torch.models.map import SlamMap
@@ -205,3 +207,8 @@ def test_unported_paths_raise():
     assert tr._try_relocalize(0.0) is False  # no vocabulary / database
     with pytest.raises(NotImplementedError):
         tr.process_stereo(None, None, 0.0)
+    # a vocabulary and a keyframe database are accepted (relocalization)
+    voc = Vocabulary.load(device="cpu")
+    kfdb = KeyFrameDatabase(voc, max_kf=cfg.capacity.max_keyframes)
+    tr = ttracking.Tracker(cfg, m, voc=voc, kfdb=kfdb)
+    assert tr.voc is voc and tr.kfdb is kfdb

@@ -9,7 +9,10 @@
    5 mm as tracked and as healed (the gap comes from the frontend's LSD
    divergence, ROADMAP.md Queue C, which changes the BA problem's line
    set; the port's BA solves the JAX problem to the JAX result).
-2. The port's ``AsyncLocalMapper`` on the CPU: the worker processes every
+2. ``LocalMapper(enable_ba=False)`` (what localization-only mode sets)
+   maps the same frames without one local BA; ``AsyncLocalMapper.enable_ba``
+   reads and sets the inner mapper's switch.
+3. The port's ``AsyncLocalMapper`` on the CPU: the worker processes every
    keyframe, ``error`` stays None, the trajectory heals against moved
    keyframes, a failing mapper pass is stored in ``error`` instead of being
    swallowed, ``wait_idle`` returns only once every queued keyframe is
@@ -97,6 +100,26 @@ def test_sequence_with_local_mapper(frames, cfgs):
     np.testing.assert_array_equal(m.kf_parent[:m.n_kf], jm.kf_parent[:jm.n_kf])
     healed = _centers(tr.healed_trajectory())
     assert np.linalg.norm(healed - _centers(jt.healed_trajectory()), axis=1).max() < 5e-3
+
+
+def test_enable_ba_false_runs_no_ba(frames, cfgs):
+    _, cfg = cfgs
+    m = SlamMap(cfg, device="cpu")
+    mapper = LocalMapper(cfg, m, enable_ba=False)
+    tr = ttracking.Tracker(cfg, m, local_mapper=mapper)
+    runs = local_ba.bundle_adjust_stepped.runs
+    for i, (g, d) in enumerate(frames):
+        tr.process(g, d, i / 30.0)
+        assert tr.state == ttracking.OK, i
+    tr.flush()
+    assert m.n_kf >= 3  # past the third keyframe, where BA would have run
+    assert mapper.fuse_passes == m.n_kf
+    assert local_ba.bundle_adjust_stepped.runs == runs
+    wrapped = AsyncLocalMapper(LocalMapper(cfg, SlamMap(cfg, device="cpu")))
+    assert wrapped.enable_ba is True
+    wrapped.enable_ba = False
+    assert wrapped.inner.enable_ba is False
+    wrapped.shutdown()
 
 
 def test_async_mapper_on_cpu(frames, cfgs):
