@@ -9,7 +9,9 @@ configuration and map state, as plain Python / numpy values:
   numpy arrays, obs dicts, counters, keyframe snapshots and descriptor
   arenas.
 - :func:`ba_problem_from_numpy` builds a local-BA problem from a JAX
-  ``BAProblem``'s arrays, so that both packages solve the same problem.
+  ``BAProblem``'s arrays, so that both packages solve the same problem;
+  :func:`pose_graph_problem_from_numpy` and :func:`sim3_problem_from_numpy`
+  do the same for the essential graph's SE(3) and Sim(3) problems.
 - :func:`vocabulary_from_numpy` builds a :class:`Vocabulary` from a JAX
   ``Vocabulary``'s node descriptors and idf, and :func:`kfdb_from_numpy` a
   :class:`KeyFrameDatabase` from a JAX database's per-keyframe sparse bows,
@@ -29,7 +31,7 @@ from .config import (CloudConfig, LineConfig, LoopConfig, MapCapacity,
 from .geometry.projection import Camera
 from .models.frame import FrameData
 from .models.map import HostFrame, SlamMap
-from .optim import local_ba
+from .optim import local_ba, pose_graph
 
 _SECTIONS = dict(orb=OrbConfig, lines=LineConfig, matcher=MatcherConfig,
                  tracking=TrackingConfig, mapping=MappingConfig, loop=LoopConfig,
@@ -64,8 +66,9 @@ def map_from_numpy(arrays: dict, cfg: SlamConfig, device="cuda") -> SlamMap:
 
     ``arrays`` holds, by the JAX map's attribute names: every numpy array of
     ``_ARRAYS``; ``pt_obs`` / ``ln_obs`` (lists of {kf: feat} dicts);
-    ``kf_children`` (list of sets); the counters ``n_kf``, ``_pt_next``,
-    ``_ln_next``; ``kf_frames`` (per-keyframe snapshots with the
+    ``kf_children`` (list of sets); ``loop_edges`` (list of (kf, kf)); the
+    counters ``n_kf``, ``_pt_next``, ``_ln_next``, ``big_change_idx``;
+    ``kf_frames`` (per-keyframe snapshots with the
     ``HostFrame`` fields, or None); and the device descriptor arenas as numpy,
     ``pt_desc_arena`` (max_points, 32) and ``ln_desc_arena`` (max_lines, 72).
     Optional ``kf_frames_dev``: per keyframe its full FrameData as numpy
@@ -86,6 +89,8 @@ def map_from_numpy(arrays: dict, cfg: SlamConfig, device="cuda") -> SlamMap:
     m.n_kf = int(arrays["n_kf"])
     m._pt_next = int(arrays["_pt_next"])
     m._ln_next = int(arrays["_ln_next"])
+    m.loop_edges = [(int(a), int(b)) for a, b in arrays["loop_edges"]]
+    m.big_change_idx = int(arrays["big_change_idx"])
     m.kf_frames = [None if f is None else HostFrame(f) for f in arrays["kf_frames"]]
     for kf, fd in enumerate(arrays.get("kf_frames_dev") or []):
         if fd is not None:
@@ -107,6 +112,31 @@ def ba_problem_from_numpy(arrays: dict, device="cuda") -> local_ba.BAProblem:
             a = a.astype(np.int64)
         out[name] = torch.from_numpy(a).to(device)
     return local_ba.BAProblem(**out)
+
+
+def _graph_fields(cls, arrays: dict, device) -> dict:
+    out = {}
+    for name in cls._fields:
+        a = np.array(arrays[name])
+        if name in ("ei", "ej"):
+            a = a.astype(np.int64)
+        out[name] = torch.from_numpy(a).to(device)
+    return out
+
+
+def pose_graph_problem_from_numpy(arrays: dict, device="cuda") -> pose_graph.PoseGraphProblem:
+    """A :class:`pose_graph.PoseGraphProblem` on ``device`` from a JAX
+    ``PoseGraphProblem`` as numpy arrays, by field name; edge indices become
+    int64."""
+    return pose_graph.PoseGraphProblem(**_graph_fields(pose_graph.PoseGraphProblem, arrays,
+                                                       device))
+
+
+def sim3_problem_from_numpy(arrays: dict, device="cuda") -> pose_graph.Sim3GraphProblem:
+    """A :class:`pose_graph.Sim3GraphProblem` on ``device`` from a JAX
+    ``Sim3GraphProblem`` as numpy arrays, by field name."""
+    return pose_graph.Sim3GraphProblem(**_graph_fields(pose_graph.Sim3GraphProblem, arrays,
+                                                       device))
 
 
 def vocabulary_from_numpy(node_desc, idf, device="cuda") -> Vocabulary:

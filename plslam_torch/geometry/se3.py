@@ -67,6 +67,49 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return eye + a * W + b * (W @ W)
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Log map of a rotation matrix -> so(3) vector, stable near 0 and pi.
+    Near 0 (|sin| < 1e-5) the antisymmetric part itself; near pi (cos <
+    -0.99) the axis from the column of (R + I) / 2 with the largest diagonal,
+    signed by the antisymmetric part."""
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = ((trace - 1.0) * 0.5).clamp(-1.0, 1.0)
+    theta = torch.arccos(cos_t)
+    w_raw = 0.5 * torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                               R[..., 1, 0] - R[..., 0, 1]], -1)
+    sin_t = torch.sin(theta)
+    small = sin_t.abs() < 1e-5
+    one = torch.ones_like(theta)
+    scale = torch.where(small, one, theta / torch.where(small, one, sin_t))
+    w_generic = scale[..., None] * w_raw
+    B = (R + eye) * 0.5
+    diag = torch.diagonal(B, dim1=-2, dim2=-1).clamp(min=0.0)
+    k = torch.argmax(diag, -1, keepdim=True)                       # first maximum
+    row = torch.take_along_dim(B, k[..., None].expand(*k.shape, 3), -2)[..., 0, :]
+    axis = row / torch.sqrt(torch.take_along_dim(diag, k, -1) + _EPS)
+    axis = axis / (torch.linalg.vector_norm(axis, dim=-1, keepdim=True) + _EPS)
+    sign = torch.where((axis * w_raw).sum(-1) < 0.0, -one, one)
+    w_pi = (theta * sign)[..., None] * axis
+    return torch.where((cos_t < -0.99)[..., None], w_pi, w_generic)
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Log map of (R, t) -> [omega, upsilon]."""
+    w = so3_log(R)
+    theta2 = _sqnorm(w)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    half = 0.5 * theta
+    # V^-1 = I - W/2 + (1/theta^2)(1 - theta cos(theta/2) / (2 sin(theta/2))) W^2
+    cot = torch.where(theta2 > _EPS,
+                      (1.0 - half * torch.cos(half) / (torch.sin(half) + _EPS)) / (theta2 + _EPS),
+                      torch.full_like(theta2, 1.0 / 12.0))
+    W = hat(w)
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    Vinv = eye - 0.5 * W + _per_matrix(cot) * (W @ W)
+    return torch.cat([w, _mv(Vinv, t)], -1)
+
+
 def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """exp of se(3) vector [omega, upsilon] -> (R, t) with t = V @ upsilon."""
     w, u = xi[..., :3], xi[..., 3:]

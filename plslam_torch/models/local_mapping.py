@@ -15,7 +15,9 @@ Covers (LocalMapping.cc):
   batched launch. Line fusion, dead code in the reference (:1036-1090), is
   live as in the JAX package;
 - LocalBundleAdjustment (:119-121 -> Optimizer.cc:644): joint point+line
-  local BA (optim.local_ba), dense Schur;
+  local BA (optim.local_ba), dense Schur; the loop closer's global BA runs
+  through the same gatherer and, past ``cfg.mapping.ba_dense_camera_cap``
+  cameras, the matrix-free PCG solver (optim.ba_cg);
 - KeyFrameCulling (:1224-1321).
 
 The map lock (``lock``, Map::mMutexMapUpdate) guards host map mutations
@@ -30,13 +32,14 @@ from __future__ import annotations
 
 import logging
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import SlamConfig
 from ..ops import line_matching, matching
-from ..optim import local_ba
+from ..optim import ba_cg, local_ba
 from . import distinctive, triangulation
 from .map import SlamMap
 from .tracking import _to_host
@@ -123,6 +126,20 @@ def line_fuse_multi_step(cfg: SlamConfig, f_ep, f_angle, f_length, f_desc, f_val
                            cand_ep3d, cand_desc, cand_valid, R[b], t[b])
             for b in range(R.shape[0])]
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+class BAGather(NamedTuple):
+    """A gathered BA problem and the host indices its write-back needs."""
+
+    prob: local_ba.BAProblem
+    cams: list              # keyframe of each camera row
+    cam_fixed: np.ndarray   # (C,) bool
+    pids: np.ndarray        # map point of each point row
+    lids: np.ndarray        # map line of each line row
+    oc: np.ndarray          # camera row of each point observation
+    op: np.ndarray          # point row of each point observation
+    lc: np.ndarray          # camera row of each line observation
+    ll: np.ndarray          # line row of each line observation
 
 
 def _pad(arr, n, shape=(), dtype=np.float32):
@@ -481,24 +498,48 @@ class LocalMapper:
                       m.ln_valid)
 
     # ------------------------------------------------------------- local BA
-    def run_local_ba(self, kf: int):
+    def run_local_ba(self, kf: int, window: int | None = None, obs_cap: int | None = None,
+                     point_cap: int | None = None, line_cap: int | None = None,
+                     lobs_cap: int | None = None, max_kf: int | None = None) -> str | None:
         """Gather the covisibility-local BA problem under the map lock, run
-        the stepped Schur LM with the lock released (aborting when a new
-        keyframe queues up, mbAbortBA), then write back poses and landmarks
-        and erase outlier observations under the lock (Optimizer.cc:644-1063,
-        with line landmarks live). The caps are ``cfg.mapping``'s."""
+        the stepped LM with the lock released (aborting when a new keyframe
+        queues up, mbAbortBA), then write back poses and landmarks and erase
+        outlier observations under the lock (Optimizer.cc:644-1063, with
+        line landmarks live). The caps default to ``cfg.mapping``'s; the
+        loop closer's global BA passes a window that covers every keyframe
+        and caps that scale with the map, and ``max_kf`` bounds the global
+        set to its snapshot. Returns the solver that ran ("dense" or
+        "pcg"), or None when the problem has fewer than 20 observations."""
+        g = self.gather_ba(kf, window, obs_cap, point_cap, line_cap, lobs_cap, max_kf)
+        if g is None:
+            return None
+        # iterate without the map lock: the tracker keeps retiring frames
+        res, solver = self.solve_ba(g.prob)
+        host = _to_host([res.cam_R, res.cam_t, res.pt_xyz, res.ln_ep, res.obs_inlier,
+                         res.lobs_inlier])
+        with self.lock:
+            self._write_back_ba(g, *host)
+        return solver
+
+    def gather_ba(self, kf: int, window=None, obs_cap=None, point_cap=None, line_cap=None,
+                  lobs_cap=None, max_kf=None) -> BAGather | None:
+        """The BA problem of :meth:`run_local_ba` on the map's device, with
+        what its write-back needs; None below 20 point observations. Takes
+        the map lock."""
         m = self.map
         mc = self.cfg.mapping
         dev = m.device
         with self.lock:
-            window = mc.local_ba_window
+            window = window or mc.local_ba_window
             C_max = window + mc.local_ba_fixed_cap
-            P = mc.local_ba_point_cap
-            O = mc.local_ba_obs_cap
-            L = mc.local_ba_line_cap
-            OL = mc.local_ba_lobs_cap
-            if window >= m.n_kf:
-                local = [k for k in range(m.n_kf) if m.kf_valid[k]]
+            P = point_cap or mc.local_ba_point_cap
+            O = obs_cap or mc.local_ba_obs_cap
+            L = line_cap or mc.local_ba_line_cap
+            OL = lobs_cap or mc.local_ba_lobs_cap
+            n_all = m.n_kf if max_kf is None else min(max_kf, m.n_kf)
+            if window >= n_all:
+                # global BA: every keyframe of the caller's snapshot
+                local = [k for k in range(n_all) if m.kf_valid[k]]
             else:
                 local = [kf] + m.covisible_keyframes(kf, window - 1)
             local = local[:window]
@@ -570,7 +611,7 @@ class LocalMapper:
             ll = lidx[lci, lfeat].astype(np.int64)
             luv = lep_s[lci, lfeat]
             if len(oc) < 20:
-                return
+                return None
             # pad every axis to the power-of-two bucket of the actual size
             k, kl = len(pids), len(lids)
             P = self._bucket(k, 512, P)
@@ -580,10 +621,6 @@ class LocalMapper:
             pt_xyz = _pad(m.pt_pos[pids], P, (3,))
             ln_ep = _pad(m.ln_ep[lids], L, (2, 3))
 
-        if C > mc.ba_dense_camera_cap:
-            raise NotImplementedError(
-                f"BA over {C} cameras needs the matrix-free PCG solver (ROADMAP.md Queue A "
-                "item 12) or the distributed one (item 17)")
         up = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         prob = local_ba.BAProblem(
             cam_R=up(cam_R), cam_t=up(cam_t), cam_fixed=up(cam_fixed),
@@ -596,35 +633,56 @@ class LocalMapper:
             lobs_uv=up(_pad(luv, OL, (2, 2))), lobs_w=up(_pad(np.ones(len(lc)), OL)),
             lobs_valid=up(np.arange(OL) < len(lc)),
         )
-        # iterate without the map lock: the tracker keeps retiring frames
-        res = local_ba.bundle_adjust_stepped(
+        return BAGather(prob, cams, cam_fixed, pids, lids, oc, op, lc, ll)
+
+    def solve_ba(self, prob: local_ba.BAProblem):
+        """(result, solver) of the stepped LM on ``prob``: the dense Schur
+        solve up to ``cfg.mapping.ba_dense_camera_cap`` cameras, the
+        matrix-free PCG (``optim/ba_cg.py``) beyond. The landmark-sharded
+        solver that the JAX package takes past the cap when more than one
+        device is visible is not ported (ROADMAP.md Queue A item 17)."""
+        mc = self.cfg.mapping
+        C = prob.cam_R.shape[0]
+        if C <= mc.ba_dense_camera_cap:
+            return local_ba.bundle_adjust_stepped(
+                self.cfg.camera, prob, iters1=mc.local_ba_iters1, iters2=mc.local_ba_iters2,
+                should_abort=self.should_abort), "dense"
+        if mc.use_distributed_ba and prob.cam_R.is_cuda and torch.cuda.device_count() > 1:
+            raise NotImplementedError(
+                f"BA over {C} cameras with {torch.cuda.device_count()} GPUs visible: the "
+                "distributed BA is ROADMAP.md Queue A item 17 (set "
+                "cfg.mapping.use_distributed_ba=False to take the PCG solver)")
+        return ba_cg.bundle_adjust_cg_stepped(
             self.cfg.camera, prob, iters1=mc.local_ba_iters1, iters2=mc.local_ba_iters2,
-            should_abort=self.should_abort)
-        nR, nt, nxyz, nep, inl, linl = _to_host(
-            [res.cam_R, res.cam_t, res.pt_xyz, res.ln_ep, res.obs_inlier, res.lobs_inlier])
-        with self.lock:
-            # write back, guarding landmarks and keyframes erased meanwhile
-            for i, c in enumerate(cams):
-                if not cam_fixed[i] and m.kf_valid[c]:
-                    m.set_kf_pose(c, nR[i], nt[i])
-            still = m.pt_valid[pids]
-            m.pt_pos[pids[still]] = nxyz[:k][still]
-            lstill = m.ln_valid[lids]
-            m.ln_ep[lids[lstill]] = nep[:kl][lstill]
-            # erase outlier observations (Optimizer.cc:1010-1045)
-            for j in np.nonzero(~inl[:len(oc)])[0]:
-                pid = int(pids[op[j]])
-                okf = cams[oc[j]]
-                feat = m.pt_obs[pid].pop(okf, None)
-                if feat is not None:
-                    m.kf_pt_idx[okf, feat] = -1
-                if len(m.pt_obs[pid]) == 0:
-                    m.erase_point(pid)
-            for j in np.nonzero(~linl[:len(lc)])[0]:
-                lid = int(lids[ll[j]])
-                okf = cams[lc[j]]
-                feat = m.ln_obs[lid].pop(okf, None)
-                if feat is not None:
-                    m.kf_ln_idx[okf, feat] = -1
-                if len(m.ln_obs[lid]) == 0:
-                    m.erase_line(lid)
+            should_abort=self.should_abort, cg_iters=mc.ba_cg_iters), "pcg"
+
+    def _write_back_ba(self, g: BAGather, nR, nt, nxyz, nep, inl, linl):
+        """A BA result (host arrays) back into the map: poses and landmarks,
+        guarding landmarks and keyframes erased while BA ran, and the
+        outlier observations erased (Optimizer.cc:1010-1045). Caller holds
+        the map lock."""
+        m = self.map
+        k, kl = len(g.pids), len(g.lids)
+        for i, c in enumerate(g.cams):
+            if not g.cam_fixed[i] and m.kf_valid[c]:
+                m.set_kf_pose(c, nR[i], nt[i])
+        still = m.pt_valid[g.pids]
+        m.pt_pos[g.pids[still]] = nxyz[:k][still]
+        lstill = m.ln_valid[g.lids]
+        m.ln_ep[g.lids[lstill]] = nep[:kl][lstill]
+        for j in np.nonzero(~inl[:len(g.oc)])[0]:
+            pid = int(g.pids[g.op[j]])
+            okf = g.cams[g.oc[j]]
+            feat = m.pt_obs[pid].pop(okf, None)
+            if feat is not None:
+                m.kf_pt_idx[okf, feat] = -1
+            if len(m.pt_obs[pid]) == 0:
+                m.erase_point(pid)
+        for j in np.nonzero(~linl[:len(g.lc)])[0]:
+            lid = int(g.lids[g.ll[j]])
+            okf = g.cams[g.lc[j]]
+            feat = m.ln_obs[lid].pop(okf, None)
+            if feat is not None:
+                m.kf_ln_idx[okf, feat] = -1
+            if len(m.ln_obs[lid]) == 0:
+                m.erase_line(lid)

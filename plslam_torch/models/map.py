@@ -75,6 +75,11 @@ class SlamMap:
         self.kf_cull_Rcp = np.zeros((cap.max_keyframes, 3, 3), np.float32)
         self.kf_cull_tcp = np.zeros((cap.max_keyframes, 3), np.float32)
         self.n_kf = 0
+        # closed loops (KeyFrame::mspLoopEdges), re-asserted by every later
+        # essential-graph optimization
+        self.loop_edges: list[tuple[int, int]] = []
+        # bumped by every loop correction (Map::mnBigChangeIdx)
+        self.big_change_idx = 0
 
         # map points
         self.pt_pos = np.zeros((cap.max_points, 3), np.float32)

@@ -31,9 +31,12 @@ Localization-only mode (``only_tracking``, the reference's mbOnlyTracking)
 mints no keyframe and, when map matches starve while the motion stage's
 temporal points still carry the pose, keeps tracking as visual odometry
 (``vo_mode``, mbVO) and retries relocalization every second frame until
-the map is reacquired. Loop closing and the mono/stereo sensors are later
-parts of the port (ROADMAP.md, Queue A) and raise ``NotImplementedError``
-here.
+the map is reacquired. A loop closer (models.loop_closing, or its worker
+in models.async_mapping) receives every keyframe after its bag of words;
+the corrections it makes reach this tracker through the gauge-correction
+protocol (``apply_gauge_correction``). The mono and stereo sensors are a
+later part of the port (ROADMAP.md, Queue A) and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -451,9 +454,6 @@ class Tracker:
             raise NotImplementedError(
                 f"sensor={sensor!r}: only RGB-D is ported (mono and stereo are "
                 "ROADMAP.md Queue A item 16)")
-        if loop_closer is not None:
-            raise NotImplementedError(
-                "loop closing is not ported yet (ROADMAP.md Queue A item 13)")
         self.cfg = cfg
         self.map = slam_map
         self.device = slam_map.device
@@ -462,7 +462,7 @@ class Tracker:
         # map-update lock (Map::mMutexMapUpdate) of a mapper on a worker
         # thread; a no-op without one
         self._map_lock = getattr(local_mapper, "lock", None) or contextlib.nullcontext()
-        self.loop_closer = None
+        self.loop_closer = loop_closer
         self.voc = voc
         self.kfdb = kfdb
         self.state = NOT_INITIALIZED
@@ -511,6 +511,19 @@ class Tracker:
         # device has no fetch latency to hide)
         self.pipeline_depth = cfg.tracking.pipeline_depth or 1
         self._queue: list[dict] = []
+        # gauge-correction protocol (loop closing, GBA): a correction
+        # rewrites keyframe poses while this tracker, and frames in flight,
+        # still live in the pre-correction gauge. The corrector publishes
+        # the rigid delta D = T_kf_old^-1 ∘ T_kf_new under the map lock
+        # (apply_gauge_correction); the tracker thread applies it at its
+        # next process() (device pose right-composed with D, local map
+        # re-uploaded), and frames dispatched before it have their poses
+        # composed with every delta since their dispatch when they retire
+        # (epoch). The reference stalls Tracking on Map::mMutexMapUpdate
+        # for the whole correction instead.
+        self._pending_gauge: tuple[np.ndarray, np.ndarray] | None = None
+        self._corr_epoch = 0
+        self._corr_deltas: list[tuple[np.ndarray, np.ndarray]] = []
         self._id_pt = torch.arange(self.LM_CAP, dtype=torch.int32, device=dev)
         self._id_ln = torch.arange(self.LL_CAP, dtype=torch.int32, device=dev)
         self._pt_remap = self._id_pt
@@ -526,6 +539,8 @@ class Tracker:
         Pipelined lag-1: returns the PREVIOUS frame's (R, t) world-to-camera
         (or None). Call :meth:`flush` to drain the last in-flight frame."""
         self.frame_id += 1
+        if self.state == OK and self._pending_gauge is not None:
+            self._apply_pending_gauge()
         if self.state == OK and self.vo_mode and self.frame_id % 2 == 0:
             self._try_reacquire_map()
         gray, depth = self._quantize_inputs(gray, depth)
@@ -569,7 +584,7 @@ class Tracker:
                 return None
         self._queue.append(dict(
             out=out, timestamp=timestamp, frame_id=self.frame_id,
-            lp_ids=self._lp_ids, ll_ids=self._ll_ids,
+            lp_ids=self._lp_ids, ll_ids=self._ll_ids, epoch=self._corr_epoch,
         ))
         return result
 
@@ -580,8 +595,41 @@ class Tracker:
         raise NotImplementedError("stereo tracking is ROADMAP.md Queue A item 16")
 
     def apply_gauge_correction(self, R_delta, t_delta):
-        raise NotImplementedError(
-            "gauge corrections come with loop closing (ROADMAP.md Queue A item 13)")
+        """Publish a rigid gauge delta (T_old^-1 ∘ T_new of a corrected
+        anchor keyframe) for the tracker thread to apply at its next frame.
+        Called by the loop closer, possibly from its worker, under the map
+        lock; a delta not yet consumed composes: D = D_prev ∘ D_new."""
+        R_delta = np.asarray(R_delta, np.float32)
+        t_delta = np.asarray(t_delta, np.float32)
+        if self._pending_gauge is None:
+            self._pending_gauge = (R_delta, t_delta)
+        else:
+            Rp, tp = self._pending_gauge
+            self._pending_gauge = ((Rp @ R_delta).astype(np.float32),
+                                   (Rp @ t_delta + tp).astype(np.float32))
+
+    def _apply_pending_gauge(self):
+        """Tracker thread: fold the published correction into the device
+        pose (T ∘ D) and ``last_pose``, re-upload the corrected local map,
+        and remember the delta so that frames dispatched before it retire in
+        the new gauge. The velocity T_cur ∘ T_prev^-1 is invariant under a
+        right composition."""
+        with self._map_lock:
+            if self._pending_gauge is None:
+                return
+            dR, dt = self._pending_gauge
+            self._pending_gauge = None
+            self._corr_deltas.append((dR, dt))
+            self._corr_epoch += 1
+            R = self._R.cpu().numpy()
+            t = self._t.cpu().numpy()
+            self._R = torch.as_tensor(R @ dR, device=self.device)
+            self._t = torch.as_tensor(R @ dt + t, device=self.device)
+            if self.last_pose is not None:
+                Rl, tl = self.last_pose
+                self.last_pose = (Rl @ dR, Rl @ dt + tl)
+            if self.last_pt_ids is not None and self._lm_args is not None:
+                self._refresh_local_map(self.last_pt_ids, self.last_ln_ids, rebind=False)
 
     def flush(self):
         """Drain all in-flight frames (call before reading the trajectory)."""
@@ -668,6 +716,9 @@ class Tracker:
             jump = float(np.linalg.norm(-(R.T @ t) + (Rl.T @ tl)))
             if jump > 0.06 + 3.0 * self._speed_est * (self.n_lost_frames + 1):
                 return False
+        # the relocalized pose is in the map's current gauge: drop a
+        # correction published for the abandoned pre-LOST state
+        self._pending_gauge = None
         self.state = OK
         self.vo_mode = False
         self.n_lost_frames = 0
@@ -729,6 +780,9 @@ class Tracker:
         self._speed_est = None
         self._has_vel = False
         self._lm_args = None
+        self._pending_gauge = None
+        self._corr_deltas = []
+        self._corr_epoch = 0
         self.vo_mode = False
 
     def _record_pose(self, timestamp: float, R: np.ndarray, t: np.ndarray,
@@ -828,6 +882,10 @@ class Tracker:
              fd.ln_valid])
         R = np.array(R)
         t = np.array(t)
+        # frames dispatched before a gauge correction retire in the new
+        # gauge: right-compose every delta published since their dispatch
+        for dR, dt in self._corr_deltas[pending["epoch"]:]:
+            R, t = R @ dR, R @ dt + t
         n_mm, n_mi, n_li, tc, cc, n_rs = (int(v) for v in stats)
         self.debug = {
             "motion_matches": n_mm, "motion_inliers": n_mi,
@@ -1101,6 +1159,8 @@ class Tracker:
             self.local_mapper.on_new_landmarks(kf, new_pt, new_ln)
             self.local_mapper.process_keyframe(kf)
         self._register_bow(kf, fd)
+        if self.loop_closer is not None:
+            self.loop_closer.process_keyframe(kf)
         self.last_pt_ids = cur_pt_ids
         self.last_ln_ids = cur_ln_ids
         self._refresh_local_map(cur_pt_ids, cur_ln_ids, rebind=False)

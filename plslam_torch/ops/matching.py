@@ -145,6 +145,30 @@ def match_descriptors(
     return m
 
 
+def match_min_of_two(
+    desc_q: torch.Tensor,    # (Nq, 32)
+    desc_t2: torch.Tensor,   # (2, Nt, 32): two descriptors of each target
+    gate: torch.Tensor,      # (Nq, Nt)
+    max_dist: int,
+    dedupe: bool = True,
+) -> MatchResult:
+    """Gated top-1 over the elementwise minimum of the two distance
+    matrices, d(q, t) = min(d(q, desc_t2[0][t]), d(q, desc_t2[1][t])), as
+    one batched Hamming launch with B = 2 and the same gate twice. The two
+    rows combine exactly: best = min(b0, b1), and the index is that of the
+    smaller best, or min(j0, j1) on a tie — the first minimum of the
+    elementwise minimum, as an argmin over it gives; a row with nothing
+    gated stays -1. No ratio test (a second-best of the minimum is not the
+    minimum of the second-bests)."""
+    g2 = gate[None].expand(2, *gate.shape).contiguous()
+    best, idx, _ = hamming.hamming_top2_batched(desc_q, desc_t2, g2)
+    b0, b1, j0, j1 = best[0], best[1], idx[0], idx[1]
+    j = torch.where(b0 < b1, j0, torch.where(b1 < b0, j1, torch.minimum(j0, j1)))
+    b = torch.minimum(b0, b1)
+    m = _masked(b <= max_dist, j, b)
+    return dedupe_targets(m, desc_t2.shape[1]) if dedupe else m
+
+
 def match_descriptors_batched(
     desc_q: torch.Tensor,   # (Nq, 32) shared by the batch
     desc_t: torch.Tensor,   # (B, Nt, 32)

@@ -51,6 +51,16 @@ def test_every_module_imports_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_loop_closing_modules_are_covered():
+    """The loop-closing slice's modules are among those imported above and
+    searched below."""
+    mods = set(_modules())
+    for name in ("geometry.sim3", "optim.pose_graph", "optim.ba_cg", "models.loop_closing",
+                 "models.async_mapping"):
+        assert "plslam_torch." + name in mods
+        assert os.path.join(PKG, *name.split(".")) + ".py" in set(_sources())
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:

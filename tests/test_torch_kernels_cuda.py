@@ -239,3 +239,90 @@ def test_hamming_batched_rejects_bad_input(dev):
         hamming.hamming_top2_batched(q, t, torch.ones(2, 4, 4, dtype=torch.bool, device=dev))
     with pytest.raises(ValueError):
         hamming.hamming_top2_batched(q, t, torch.ones(3, 4, 5, dtype=torch.bool, device=dev))
+
+
+def _window_gate(rng, dev, n, m, radius, batch=None):
+    """A projection-window gate as the loop closer builds it: query i
+    projects to a point in the 640 x 480 image and gates the targets within
+    ``radius`` px (targets uniform over the image)."""
+    shape = (n, 2) if batch is None else (batch, n, 2)
+    uv_q = torch.as_tensor(rng.uniform([0, 0], [640, 480], shape), dtype=torch.float32,
+                           device=dev)
+    uv_t = torch.as_tensor(rng.uniform([0, 0], [640, 480], (m, 2)), dtype=torch.float32,
+                           device=dev)
+    return ((uv_q[..., :, None, :] - uv_t).abs() < radius).all(-1).contiguous()
+
+
+# the loop closer's four shapes (models/loop_closing.py): the Sim3 ratio
+# match with the dense gate has_point x has_point, the SearchBySim3
+# expansion (B = 2: features and landmark descriptors behind one window
+# gate), the verification projection and SearchAndFuse (B = 10)
+LOOP_SHAPES = {"sim3 match 1024x1024": (1024, 1024, None, None),
+               "expansion 2 x 1024x1024": (1024, 1024, 2, 15.0),
+               "verification 4096x1024": (4096, 1024, None, 10.0),
+               "search and fuse 10 x 4096x1024": (4096, 1024, 10, 5.0)}
+
+
+@pytest.mark.parametrize("name", list(LOOP_SHAPES))
+def test_hamming_loop_shapes_equal_plain(dev, name):
+    n, m, B, radius = LOOP_SHAPES[name]
+    rng = np.random.default_rng(n + m + (B or 0))
+    q = torch.as_tensor(rng.integers(0, 256, (n, 32), dtype=np.uint8), device=dev)
+    t = torch.as_tensor(rng.integers(0, 256, (B or 1, m, 32), dtype=np.uint8), device=dev)
+    t[:, :200] = q[:200]  # twins, so that best distances tie across the batch
+    if radius is None:
+        has_q = torch.as_tensor(rng.random(n) < 0.8, device=dev)
+        has_t = torch.as_tensor(rng.random(m) < 0.8, device=dev)
+        gate = (has_q[:, None] & has_t[None, :])[None]
+    elif B is None:
+        gate = _window_gate(rng, dev, n, m, radius)[None]
+    elif B == 2:
+        gate = _window_gate(rng, dev, n, m, radius)[None].expand(2, n, m).contiguous()
+    else:
+        gate = _window_gate(rng, dev, n, m, radius, batch=B)
+    gate[:, :200, :200] |= torch.eye(200, dtype=torch.bool, device=dev)
+    if B is None:
+        fn, plain, args = hamming.hamming_top2, hamming.hamming_top2_plain, (q, t[0], gate[0])
+        counter = hamming.hamming_top2
+    else:
+        fn, plain, args = (hamming.hamming_top2_batched, hamming.hamming_top2_batched_plain,
+                           (q, t, gate))
+        counter = hamming.hamming_top2_batched
+    before = counter.launches
+    got = fn(*args)
+    assert counter.launches == before + 1
+    for a, w in zip(got, plain(*args)):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
+def test_min_of_two_equals_plain_top1_of_the_minimum(dev):
+    """The expansion's one B = 2 launch, combined, equals the plain top-1
+    over min(d(q, t0), d(q, t1)) at every row, ties between the two rows
+    and within a row included, and rows with nothing gated stay -1."""
+    from plslam_torch.ops import matching
+
+    rng = np.random.default_rng(7)
+    n = m = 1024
+    q = torch.as_tensor(rng.integers(0, 256, (n, 32), dtype=np.uint8), device=dev)
+    t = torch.as_tensor(rng.integers(0, 256, (2, m, 32), dtype=np.uint8), device=dev)
+    t[0, 100:200] = q[:100]           # twins in the features ...
+    t[1, 300:400] = q[:100]           # ... and in the landmarks: a tie across rows
+    t[1, 500:550] = q[100:150]
+    t[1, 600:650] = q[100:150]        # a tie within one row
+    gate = _window_gate(rng, dev, n, m, 60.0)
+    gate[:150, 100:650] = True
+    gate[700] = False
+    before = hamming.hamming_top2_batched.launches
+    for dedupe in (False, True):
+        got = matching.match_min_of_two(q, t, gate, 50, dedupe=dedupe)
+        dmin = torch.minimum(hamming.hamming_matrix(q, t[0]), hamming.hamming_matrix(q, t[1]))
+        want = matching.best_matches(dmin, gate, 50)
+        if dedupe:
+            want = matching.dedupe_targets(want, m)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=0, atol=0)
+    assert hamming.hamming_top2_batched.launches == before + 2
+    idx = got.idx.cpu().numpy()
+    assert (idx[:100] == np.arange(100, 200)).all()  # the lower index of the tie
+    assert (idx[100:150] == np.arange(500, 550)).all()
+    assert idx[700] == -1

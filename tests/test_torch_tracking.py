@@ -68,6 +68,7 @@ def _map_arrays(jm):
     d = {k: getattr(jm, k) for k in convert._ARRAYS}
     d.update(pt_obs=jm.pt_obs, ln_obs=jm.ln_obs, kf_children=jm.kf_children,
              n_kf=jm.n_kf, _pt_next=jm._pt_next, _ln_next=jm._ln_next,
+             loop_edges=jm.loop_edges, big_change_idx=jm.big_change_idx,
              kf_frames=jm.kf_frames,
              pt_desc_arena=np.asarray(jm.point_desc_arena()),
              ln_desc_arena=np.asarray(jm.line_desc_arena()))
@@ -201,8 +202,6 @@ def test_unported_paths_raise():
     m = SlamMap(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         ttracking.Tracker(cfg, m, sensor="mono")
-    with pytest.raises(NotImplementedError):
-        ttracking.Tracker(cfg, m, loop_closer=object())
     tr = ttracking.Tracker(cfg, m)
     assert tr._try_relocalize(0.0) is False  # no vocabulary / database
     with pytest.raises(NotImplementedError):
@@ -212,3 +211,6 @@ def test_unported_paths_raise():
     kfdb = KeyFrameDatabase(voc, max_kf=cfg.capacity.max_keyframes)
     tr = ttracking.Tracker(cfg, m, voc=voc, kfdb=kfdb)
     assert tr.voc is voc and tr.kfdb is kfdb
+    # and a loop closer (loop closing)
+    lc = object()
+    assert ttracking.Tracker(cfg, m, loop_closer=lc, voc=voc, kfdb=kfdb).loop_closer is lc

@@ -47,6 +47,7 @@ def map_arrays(jm):
     d.update(pt_obs=[dict(o) for o in jm.pt_obs], ln_obs=[dict(o) for o in jm.ln_obs],
              kf_children=[set(c) for c in jm.kf_children],
              n_kf=jm.n_kf, _pt_next=jm._pt_next, _ln_next=jm._ln_next,
+             loop_edges=list(jm.loop_edges), big_change_idx=jm.big_change_idx,
              kf_frames=list(jm.kf_frames),
              kf_frames_dev=[None if f is None else jax.tree_util.tree_map(np.asarray, f)
                             for f in jm.kf_frames_dev],
