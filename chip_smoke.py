@@ -55,13 +55,13 @@ Phases, one line each:
                revisit frames keep being fed; the loop must close across the
                cut and land the loop pair on ground truth, frames must retire
                during the worker's pass, the final pose must stay within 30
-               cm; stage times. Then the global BA of the corrected map through
+               cm and every keyframe within 1 m (after the orbit and after
+               the severed loop); stage times. Then the global BA of the corrected map through
                the PCG solver against the dense one, and kernel 2 at the loop
                closer's five calls, on the inputs it built (phase kernels'
                loop shapes: Sim3 match, two SearchBySim3 expansion rounds of
                B = 2, verification, SearchAndFuse of B = 10).
-The orbit and the room are rendered in 6 worker processes while the kernels
-build. Then a JSON line of per-kernel numbers (launches: the mapping phase,
+Then a JSON line of per-kernel numbers (launches: the mapping phase,
 which is bench.py's path; the main, reloc and loop phases' beside them), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
@@ -947,8 +947,7 @@ def sever_and_displace(m, kf_cut, W_R, W_t):
     with the real descriptor), cross-sector line observations are dropped,
     and the old sector (keyframes < kf_cut, their landmarks) is displaced
     rigidly by the world transform W, so only the loop pipeline can
-    reconnect the sectors. Unlike the JAX helper it also drops loop edges
-    across the cut. Caller holds the map lock."""
+    reconnect the sectors. Caller holds the map lock."""
     desc_arena = m.point_desc_arena().cpu().numpy()
     for pid in list(m.point_ids()):
         obs = m.pt_obs[pid]
@@ -982,10 +981,6 @@ def sever_and_displace(m, kf_cut, W_R, W_t):
     lsel = lids[m.ln_first_kf[lids] < kf_cut]
     for i in (0, 1):
         m.ln_ep[lsel, i] = (m.ln_ep[lsel, i] - W_t) @ W_R
-    # a loop closed during the orbit across the cut would survive as an
-    # essential-graph edge between the sectors (re-asserted at weight 5 from
-    # the displaced poses); the severed sectors share none
-    m.loop_edges = [(a, b) for a, b in m.loop_edges if (a < kf_cut) == (b < kf_cut)]
 
 
 def _kf0_relative_err(m, pose, poses, k=-1):
@@ -1019,13 +1014,15 @@ def _anchor_err(R_arr, t_arr, a, b, gt_R, gt_t):
 
 class LoopProbe:
     """Instrumentation of one LoopCloser on its worker, attached to the
-    instance: host ms of each stage (the device synced after it), the
-    Hamming launches SearchAndFuse makes on its own thread, the solver of
-    each global BA, the outcome of each detection and relative-pose solve,
-    and the first kernel inputs of each loop shape (while the probe is
-    attached, ``ops.matching`` reaches the Hamming module through a proxy
-    that records on the worker thread inside a stage; the wrappers and
-    their launch counts stay as they are)."""
+    instance's stage methods: host ms of each stage (the device synced
+    after it), the solver of each global BA, the outcome of each detection
+    and relative-pose solve, and, inside the relative-pose and SearchAndFuse
+    stages only, the closer's calls into the Hamming module: ``ops.matching``
+    reaches it through a forwarding proxy while such a stage runs, which
+    keeps the first kernel inputs of each loop shape and counts
+    SearchAndFuse's batched launches (calls from other threads pass
+    through untouched; the wrappers and their launch counts stay as they
+    are)."""
 
     STAGES = ("_detect_loop", "_compute_relative", "_propagate_group", "_search_and_fuse",
               "_optimize_essential_graph", "_global_ba")
@@ -1050,17 +1047,19 @@ class LoopProbe:
                 if name == "_propagate_group" and self.pre_correction is None:
                     # the caller holds the map lock
                     self.pre_correction = (inner.map.kf_R.copy(), inner.map.kf_t.copy())
+                recorded = name in ("_compute_relative", "_search_and_fuse")
                 self._stage.name = name
-                before = hamming.thread_launches()[1]
+                if recorded:
+                    matching.hamming = proxy
                 t0 = time.perf_counter()
                 try:
                     out = fn(*a, **kw)
                     torch.cuda.synchronize()
                 finally:
                     self._stage.name = None
+                    if recorded:
+                        matching.hamming = hamming
                 self.ms[name].append((time.perf_counter() - t0) * 1e3)
-                if name == "_search_and_fuse":
-                    self.fuse_launches += hamming.thread_launches()[1] - before
                 if name == "_global_ba":
                     self.gba_solvers.append(out)
                 if name == "_detect_loop":
@@ -1075,6 +1074,9 @@ class LoopProbe:
 
             def run(q, t, gate):
                 stage = getattr(self._stage, "name", None)
+                if (stage == "_search_and_fuse" and fn_name == "hamming_top2_batched"
+                        and q.is_cuda):
+                    self.fuse_launches += 1
                 if stage in ("_compute_relative", "_search_and_fuse"):
                     kind = {("_compute_relative", "hamming_top2", 1024): "sim3 match",
                             ("_compute_relative", "hamming_top2", 4096): "verification",
@@ -1097,14 +1099,9 @@ class LoopProbe:
             def __getattr__(self, name):
                 return getattr(hamming, name)
 
+        proxy = Proxy()
         for name in self.STAGES:
             setattr(inner, name, timed(name, getattr(inner, name)))
-        matching.hamming = Proxy()
-
-    def detach(self):
-        from plslam_torch.ops import hamming, matching
-
-        matching.hamming = hamming
 
     def reset(self):
         for v in self.ms.values():
@@ -1119,6 +1116,12 @@ class LoopProbe:
 FUSE_TARGETS = 10  # SearchAndFuse's batch: the corrected group's keyframes
 LOOP_ANCHOR_M = 0.05  # tests/test_loop_closing.py::run_severed_loop_check's bars
 LOOP_FINAL_M = 0.30   # tests/test_async_loop.py's KF0-relative bar
+# every keyframe's KF0-relative error, after the orbit (its live loop
+# included) and after the severed loop: the orbit drifts tens of cm in both
+# packages (the JAX package's own run of it, at 320x240 on the CPU, leaves
+# keyframes 1.3-1.9 m off, tests/torch_orbit_compare.py), so the bar only
+# catches a map torn by metres
+LOOP_MAP_M = 1.0
 PCG_POSE_M = 0.005  # tests/test_ba_cg.py's bars: mean pose error difference, cost ratio
 PCG_COST_RATIO = 1.05
 
@@ -1199,11 +1202,13 @@ def loop_phase(cfg, dev, frames, poses):
         for i in range(n):
             feed(i, i / 30.0)
         _quiesce(tr, lm, lc)
+        orbit_errs = _kf_errors(m, poses, frame_of, m.n_kf)
         res.update(orbit_s=time.perf_counter() - t_start,
                    loops_closed_during_orbit=lc.n_loops_closed,
                    loop_edges_before_severance=[list(e) for e in m.loop_edges],
-                   kf0_relative_err_by_kf_before_severance_cm=_kf_errors(m, poses, frame_of,
-                                                                         m.n_kf))
+                   kf0_relative_err_by_kf_before_severance_cm=orbit_errs)
+        require(max(orbit_errs) < LOOP_MAP_M * 100,
+                f"a keyframe {max(orbit_errs):.1f} cm off after the orbit")
         W_R = np.array([[np.cos(0.1), 0, np.sin(0.1)], [0, 1, 0], [-np.sin(0.1), 0, np.cos(0.1)]],
                        np.float32)
         W_t = np.array([0.15, 0.0, -0.12], np.float32)
@@ -1260,7 +1265,8 @@ def loop_phase(cfg, dev, frames, poses):
             j += 1
         _quiesce(tr, lm, lc)
         final_err = _kf0_relative_err(m, tr.last_pose, poses)
-        res.update(kf0_relative_err_by_kf_cm=_kf_errors(m, poses, frame_of, K0),
+        kf_errs = _kf_errors(m, poses, frame_of, K0)
+        res.update(kf0_relative_err_by_kf_cm=kf_errs,
                    final_kf0_relative_err_cm=final_err * 100, final_state=tr.state,
                    gauge_corrections_applied=tr._corr_epoch)
         ms = {s.lstrip("_"): v for s, v in probe.ms.items()}
@@ -1280,11 +1286,12 @@ def loop_phase(cfg, dev, frames, poses):
         require(probe.gba_solvers and all(s in ("dense", "pcg") for s in probe.gba_solvers),
                 f"global BA did not run: {probe.gba_solvers}")
         require(final_err < LOOP_FINAL_M, f"KF0-relative error {final_err * 100:.1f} cm")
+        require(max(kf_errs) < LOOP_MAP_M * 100,
+                f"a keyframe {max(kf_errs):.1f} cm off after the severed loop")
     except Exception:
         log("phase loop: failed, " + json.dumps(res))
         raise
     finally:
-        probe.detach()
         lc.shutdown()
         lm.shutdown()
     torch.cuda.synchronize()
@@ -1301,14 +1308,15 @@ def pcg_check(cfg, m, kf1, poses, frame_of):
     """The global BA of the corrected map once more, gathered as the loop
     closer gathers it, with ``cfg.mapping.ba_dense_camera_cap`` below the
     keyframe count so that ``solve_ba`` takes the matrix-free PCG solver
-    (optim/ba_cg.py), against the dense solver on the same problem. At the
-    configured ``ba_cg_iters`` (48) CG is truncated: on the severed map's
-    weakly joined cut the solutions part by centimetres at equal cost, so
-    that run is held to the cost bar and reported. With ``ba_cg_iters`` at
-    6C, the size of the reduced camera system (where CG is exact in exact
-    arithmetic), the solver is held to tests/test_ba_cg.py's bars: mean
-    keyframe pose error (camera centre to ground truth after Horn
-    alignment) within 5 mm of dense, cost <= 1.05 x dense."""
+    (optim/ba_cg.py), against the dense solver on the same problem, with
+    tests/test_ba_cg.py's bars: mean keyframe pose error (camera centre to
+    ground truth after Horn alignment) within 5 mm of dense, cost <= 1.05 x
+    dense. Run at the configured ``ba_cg_iters`` (48, what the loop closer's
+    global BA runs) and at 6C, the size of the reduced camera system, where
+    CG is exact in exact arithmetic. Both are held to the cost bar, and the
+    6C run to the pose bar as well. The configured run's pose bar is only
+    reported (``pose_bar_met``): CG truncated at 48 iterations misses it on
+    some of these maps (ROADMAP.md Queue C)."""
     import dataclasses
 
     import torch
@@ -1354,7 +1362,8 @@ def pcg_check(cfg, m, kf1, poses, frame_of):
         err_p = float(aligned_errors(c_p, gt).mean())
         out[f"pcg_{cg_iters}_iters"] = dict(
             ms=ms, cost=cost_p, kf_err_mean_cm=err_p * 100,
-            centre_diff_max_mm=float(np.linalg.norm(c_p - c_d, axis=1).max()) * 1e3)
+            centre_diff_max_mm=float(np.linalg.norm(c_p - c_d, axis=1).max()) * 1e3,
+            pose_bar_met=abs(err_p - err_d) < PCG_POSE_M)
         require(np.isfinite(c_p).all() and cost_p <= PCG_COST_RATIO * cost_d,
                 f"PCG ({cg_iters} CG iterations) cost {cost_p} against dense {cost_d}")
     require(abs(err_p - err_d) < PCG_POSE_M,
@@ -1425,37 +1434,12 @@ def check_loop_shapes(inputs):
     return out
 
 
-def _render_chunk(seed, cam, poses, f):
+def render(cfg, seed, poses):
+    """uint8 gray and uint16 depth frames of RoomScene(seed) at ``poses``."""
     from plslam_torch.utils.synthetic import RoomScene
 
     scene = RoomScene(seed)
-    return [_render(scene, cam, p, f) for p in poses]
-
-
-def render_sequences(cfg, workers=6):
-    """The two sequences, rendered on the host in ``workers`` processes
-    (spawned, so no CUDA state is inherited) in chunks of 10 frames while
-    the kernels build: the room's 150 frames (phases main and mapping) and
-    the 150-frame orbit of RoomScene(3) (phases reloc and loop). Returns the
-    pool and, per sequence, (futures, poses)."""
-    import concurrent.futures as cf
-    import multiprocessing as mp
-
-    from plslam_torch.utils.synthetic import smooth_trajectory
-
-    f = cfg.tracking.depth_map_factor
-    pool = cf.ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn"))
-    seqs = []
-    for seed, poses in ((0, smooth_trajectory(2 * N_FRAMES)[:N_FRAMES]),
-                        (3, orbit_poses(N_FRAMES))):
-        seqs.append(([pool.submit(_render_chunk, seed, cfg.camera, poses[i:i + 10], f)
-                      for i in range(0, len(poses), 10)], poses))
-    return pool, seqs
-
-
-def collect(seq):
-    futures, poses = seq
-    return [fr for fut in futures for fr in fut.result()], poses
+    return [_render(scene, cfg.camera, p, cfg.tracking.depth_map_factor) for p in poses]
 
 
 def main() -> int:
@@ -1466,21 +1450,10 @@ def main() -> int:
         return 1
     from plslam_torch.config import SlamConfig
     from plslam_torch.geometry.projection import Camera
+    from plslam_torch.ops import cuda_build
+    from plslam_torch.utils.synthetic import smooth_trajectory
 
     cfg = SlamConfig(camera=Camera(fx=525.0, fy=525.0, cx=319.5, cy=239.5, bf=40.0))
-    t0 = time.perf_counter()
-    pool, seqs = render_sequences(cfg)
-    try:
-        return run(cfg, seqs, t0)
-    finally:
-        pool.shutdown(cancel_futures=True)
-
-
-def run(cfg, seqs, t_render) -> int:
-    import torch
-
-    from plslam_torch.ops import cuda_build
-
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}, torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -1488,9 +1461,10 @@ def run(cfg, seqs, t_render) -> int:
     t = cuda_build.build(verbose=True)
     log(f"phase build: ok, {t:.1f} s for {len(cuda_build.KERNELS)} kernels")
 
-    frames, poses = collect(seqs[0])
-    log(f"rendered {N_FRAMES} frames 640x480 in {time.perf_counter() - t_render:.1f} s "
-        "(6 processes, the orbit's 150 frames alongside)")
+    t0 = time.perf_counter()
+    poses = smooth_trajectory(2 * N_FRAMES)[:N_FRAMES]
+    frames = render(cfg, 0, poses)
+    log(f"rendered {N_FRAMES} frames 640x480 in {time.perf_counter() - t0:.1f} s")
 
     kernels = [check_fast(cfg, frames, dev), check_hamming(cfg, frames, dev)]
     kernels[1]["mapping_shapes"] = check_mapping_shapes(cfg, frames, poses, dev)
@@ -1509,7 +1483,10 @@ def run(cfg, seqs, t_render) -> int:
                               + mres["launches"]["hamming_top2_batched"])
     kernels[1]["launches_batched"] = mres["launches"]["hamming_top2_batched"]
     kernels[1]["launches_main_phase"] = res["launches"]["hamming_top2"]
-    orbit, orbit_poses_ = collect(seqs[1])
+    t0 = time.perf_counter()
+    orbit_poses_ = orbit_poses(N_FRAMES)
+    orbit = render(cfg, 3, orbit_poses_)
+    log(f"rendered the orbit's {N_FRAMES} frames 640x480 in {time.perf_counter() - t0:.1f} s")
     rres = reloc_phase(cfg, dev, orbit, orbit_poses_)
     log("phase reloc: ok, " + json.dumps(rres))
     kernels[1]["launches_reloc_phase"] = (rres["blackout"]["hamming_launches"]

@@ -19,7 +19,11 @@ thread, LoopClosing.cc:76-116): detection, the relative-pose solve,
 correction and global BA run there while the tracker keeps retiring
 frames; corrections reach the tracker through its gauge-correction
 protocol, and a keyframe queued for the local mapper aborts a running
-global BA between chunks (the mapper's ``should_abort``, mbStopGBA).
+global BA between chunks (the mapper's ``should_abort``, mbStopGBA). A
+correction holds an asynchronous mapper's ``pass_lock``, so no mapping pass
+runs across it (the reference's CorrectLoop stops LocalMapping; the JAX package does
+not, and a local BA gathered before a correction then writes the corrected
+keyframes back where they were).
 
 Unlike the JAX package, which prints a worker exception and carries on, a
 worker stores the first exception in ``error`` and logs it; callers check
@@ -67,7 +71,7 @@ class _KeyframeWorker:
             try:
                 # the inner pass takes the map lock per stage; holding it
                 # across the whole pass (BA included) would stall the tracker
-                self.inner.process_keyframe(kf)
+                self._process(kf)
             except Exception as e:
                 _log.exception("%s failed on keyframe %d", self._what, kf)
                 if self.error is None:
@@ -76,6 +80,9 @@ class _KeyframeWorker:
                 with self._done:
                     self._pending -= 1
                     self._done.notify_all()
+
+    def _process(self, kf: int):
+        self.inner.process_keyframe(kf)
 
     def wait_idle(self, timeout: float | None = None) -> bool:
         """Waits until every queued keyframe has been processed; False if
@@ -108,7 +115,15 @@ class AsyncLocalMapper(_KeyframeWorker):
         # abort a running BA when another keyframe is waiting
         # (LocalMapping::InterruptBA, LocalMapping.cc:1107)
         inner.should_abort = lambda: not self._q.empty()
+        # held for each keyframe pass; a loop correction takes it for its
+        # whole length (CorrectLoop stops LocalMapping first), so no pass
+        # reads poses before a correction and writes them back after it
+        self.pass_lock = threading.Lock()
         super().__init__(inner)
+
+    def _process(self, kf: int):
+        with self.pass_lock:
+            self.inner.process_keyframe(kf)
 
     # the LocalMapper interface the tracker and the loop closer use --------
     @property
@@ -152,6 +167,13 @@ class AsyncLoopCloser(_KeyframeWorker):
 
     _what = "loop closing"
     _stop_timeout = 10.0  # a global BA may be mid-chunk
+
+    def __init__(self, inner):
+        # a correction pauses an asynchronous mapper's passes; a synchronous
+        # mapper's pass runs whole under the map lock on the tracker's thread,
+        # so it cannot straddle a stage of the correction
+        inner.mapping_pause = getattr(getattr(inner, "local_mapper", None), "pass_lock", None)
+        super().__init__(inner)
 
     # the LoopCloser interface ---------------------------------------------
     @property

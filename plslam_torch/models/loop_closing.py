@@ -36,6 +36,7 @@ lines, 512 Sim3 pairs) and each logs when it truncates.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 
@@ -137,6 +138,9 @@ class LoopCloser:
         # the map lock shared with the mapper and the tracker (an RLock:
         # the synchronous call path nests it); held for host mutation only
         self.lock = getattr(local_mapper, "lock", None) or threading.RLock()
+        # held across a correction when both run on worker threads
+        # (AsyncLoopCloser sets it to the AsyncLocalMapper's pass lock)
+        self.mapping_pause = None
 
     # ------------------------------------------------------------------ main
     def process_keyframe(self, kf: int):
@@ -355,7 +359,19 @@ class LoopCloser:
     def _correct_loop(self, kf1: int, kf2: int, R12, t12, s12=1.0):
         """CorrectLoop. For RGB-D ``s12`` is 1 (fixed scale); a monocular
         similarity's scale folds into the written SE3 poses as [R | t/s]
-        (the reference's CorrectedSim3 write-back, LoopClosing.cc:700-760)."""
+        (the reference's CorrectedSim3 write-back, LoopClosing.cc:700-760).
+
+        ``mapping_pause`` (the asynchronous local mapper's ``pass_lock``, set
+        by ``AsyncLoopCloser``) is held throughout, as CorrectLoop first
+        stops LocalMapping: a mapping pass that read the poses before the
+        correction and wrote them back after it would put the corrected
+        keyframes back where they were (measured on the orbit of
+        RoomScene(3): a local BA gathered before the propagation moved the
+        loop keyframe back by 49 cm). The tracker keeps running."""
+        with self.mapping_pause or contextlib.nullcontext():
+            self._correct_loop_paused(kf1, kf2, R12, t12, s12)
+
+    def _correct_loop_paused(self, kf1, kf2, R12, t12, s12):
         m = self.map
         with self.lock:
             # pre-correction poses: the essential graph's tree and

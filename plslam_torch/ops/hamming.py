@@ -18,7 +18,6 @@ Replaces the reference's per-pair popcount loop
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -129,7 +128,6 @@ def hamming_top2(q_desc: torch.Tensor, t_desc: torch.Tensor, gate: torch.Tensor)
     best, idx, second, launched = _launch(q_desc, t_desc[None], gate[None])
     if launched:
         hamming_top2.launches += 1
-        _by_thread.single = getattr(_by_thread, "single", 0) + 1
     return best[0], idx[0], second[0]
 
 
@@ -144,21 +142,11 @@ def hamming_top2_batched(q_desc: torch.Tensor, t_desc: torch.Tensor, gate: torch
     best, idx, second, launched = _launch(q_desc, t_desc, gate)
     if launched:
         hamming_top2_batched.launches += 1
-        _by_thread.batched = getattr(_by_thread, "batched", 0) + 1
     return best, idx, second
 
 
 hamming_top2.launches = 0
 hamming_top2_batched.launches = 0
-_by_thread = threading.local()
-
-
-def thread_launches() -> tuple[int, int]:
-    """(hamming_top2, hamming_top2_batched) launches made by the calling
-    thread since it started: tells a worker's launches from those that
-    other threads make meanwhile. Instrumentation, as the ``launches``
-    counts are."""
-    return getattr(_by_thread, "single", 0), getattr(_by_thread, "batched", 0)
 
 _dense_counters: dict[torch.device, torch.Tensor] = {}
 

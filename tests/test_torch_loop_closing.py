@@ -423,3 +423,39 @@ def test_async_local_mapper_loop_closer_interface():
                                ("replace", 10, 11)]
     finally:
         lm.shutdown()
+
+
+def test_correction_pauses_the_async_mapper():
+    """Under AsyncLoopCloser a correction holds the AsyncLocalMapper's pass
+    lock (CorrectLoop stops LocalMapping): a keyframe queued for the mapper
+    while the correction runs is processed only after it."""
+    events = []
+    mapper = _Inner()
+    mapper.process_keyframe = lambda kf: events.append(("pass", kf))
+    lm = AsyncLocalMapper(mapper)
+    closer = LoopCloser(None, None, None, None, local_mapper=lm)
+    lc = AsyncLoopCloser(closer)
+    started, release = threading.Event(), threading.Event()
+
+    def correct(*args):
+        events.append("correction started")
+        started.set()
+        assert release.wait(10.0)
+        events.append("correction done")
+
+    closer._correct_loop_paused = correct
+    try:
+        assert closer.mapping_pause is lm.pass_lock
+        t = threading.Thread(target=closer._correct_loop, args=(5, 1, np.eye(3), np.zeros(3)))
+        t.start()
+        assert started.wait(10.0)
+        lm.process_keyframe(7)
+        assert not lm.wait_idle(timeout=0.3)  # the pass waits for the correction
+        release.set()
+        t.join(10.0)
+        assert lm.wait_idle(timeout=10.0)
+        assert events == ["correction started", "correction done", ("pass", 7)]
+    finally:
+        release.set()
+        lc.shutdown()
+        lm.shutdown()

@@ -80,7 +80,10 @@ def _sever(m, tr, lc):
     return kf_cut
 
 
-def _check_anchor(m, lc, kf_cut, disp_R, disp_t, poses):
+def _check_anchor(m, lc, kf_cut, disp_R, disp_t, poses, frame_of=None):
+    """``disp_R`` / ``disp_t``: the keyframe poses before the correction;
+    ``frame_of`` maps a tracker frame id to its orbit frame where they
+    differ (frames fed again during the worker's pass)."""
     assert lc.n_loops_closed >= 1, "loop closure never fired"
     k1, k2 = lc.last_loop_pair
     assert k2 < kf_cut <= k1, (k1, k2, kf_cut)
@@ -89,9 +92,9 @@ def _check_anchor(m, lc, kf_cut, disp_R, disp_t, poses):
                 and any(q >= kf_cut for q in m.pt_obs[pid]))
     assert cross >= 20, f"only {cross} cross-sector landmarks"
     K = len(disp_R)
-    fid = m.kf_frame_id[:K]
-    gt_R = np.stack([poses[int(f)][0] for f in fid])
-    gt_t = np.stack([poses[int(f)][1] for f in fid])
+    gt = [poses[(frame_of or {}).get(int(f), int(f))] for f in m.kf_frame_id[:K]]
+    gt_R = np.stack([R for R, _ in gt])
+    gt_t = np.stack([t for _, t in gt])
     before = anchor_err(disp_R, disp_t, k2, k1, gt_R, gt_t)
     after = anchor_err(m.kf_R, m.kf_t, k2, k1, gt_R, gt_t)
     assert before > 0.05, before
@@ -128,6 +131,9 @@ def test_async_loop_closes_while_frames_retire():
 
     inner = lc.inner
     orig_process = inner.process_keyframe
+    orig_propagate = inner._propagate_group
+    pre = []  # keyframe poses just before the correction (the loop may close
+    # on a keyframe the tracker made during the pass)
 
     def process_keyframe(kf):
         note("pass started")
@@ -135,6 +141,11 @@ def test_async_loop_closes_while_frames_retire():
         orig_process(kf)
         if inner.n_loops_closed > before:
             note("loop closed")
+
+    def propagate_group(*a):
+        if not pre:  # the caller holds the map lock
+            pre.append((m.kf_R[:m.n_kf].copy(), m.kf_t[:m.n_kf].copy()))
+        orig_propagate(*a)
 
     try:
         for i, (g, d) in enumerate(frames):
@@ -145,24 +156,26 @@ def test_async_loop_closes_while_frames_retire():
         with tr._map_lock:
             kf_cut = _sever(m, tr, lc)
         tr._refresh_local_map(tr.last_pt_ids, tr.last_ln_ids)
-        disp_R, disp_t = m.kf_R[:m.n_kf].copy(), m.kf_t[:m.n_kf].copy()
         k = max(q for q in range(m.n_kf) if m.kf_valid[q])
         inner.process_keyframe = process_keyframe
+        inner._propagate_group = propagate_group
         n, j = len(frames), 0
         order, cur = revisit_order(), n - 1
+        frame_of = {}
         for _ in range(3):
             lc.process_keyframe(k)
             while not lc.idle and j < 120:
                 cur = next(order)
                 if tr.process(*frames[cur], (n + j) / 30.0) is not None:
                     note("retired")
+                frame_of[tr.frame_id] = cur
                 j += 1
             if lc.n_loops_closed:
                 break
         for w in (lm, lc, lm):
             assert w.wait_idle(timeout=600.0)
         assert lc.error is None and lm.error is None, (lc.error, lm.error)
-        _check_anchor(m, lc, kf_cut, disp_R, disp_t, poses)
+        _check_anchor(m, lc, kf_cut, *pre[0], poses, frame_of)
         closed = events.index("loop closed")
         first_pass = events.index("pass started")
         assert "retired" in events[first_pass:closed], events

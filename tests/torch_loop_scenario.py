@@ -51,11 +51,13 @@ def render_orbit(scene, cam, poses, depth_factor):
     return out
 
 
-def sever_and_displace(m, kf_cut, W_R, W_t):
+def sever_and_displace(m, kf_cut, W_R, W_t, drop_loop_edges=False):
     """tests/test_loop_closing.py::sever_and_displace (s = 1) on a port
     map: landmarks shared across the cut are split, cross-sector line
-    observations dropped, the old sector displaced rigidly by W; and, which
-    the JAX helper leaves, loop edges across the cut dropped."""
+    observations dropped, the old sector displaced rigidly by W. With
+    ``drop_loop_edges``, which the JAX helper does not do, loop edges across
+    the cut are dropped as well (tests/torch_sever_replay.py compares the
+    two)."""
     desc_arena = m.point_desc_arena().cpu().numpy()
     for pid in list(m.point_ids()):
         obs = m.pt_obs[pid]
@@ -89,9 +91,10 @@ def sever_and_displace(m, kf_cut, W_R, W_t):
     lsel = lids[m.ln_first_kf[lids] < kf_cut]
     for i in (0, 1):
         m.ln_ep[lsel, i] = (m.ln_ep[lsel, i] - W_t) @ W_R
-    # a loop closed during the orbit across the cut would stay an
-    # essential-graph edge between the sectors; the severed sectors share none
-    m.loop_edges = [(a, b) for a, b in m.loop_edges if (a < kf_cut) == (b < kf_cut)]
+    if drop_loop_edges:
+        # a loop closed during the orbit across the cut stays an
+        # essential-graph edge between the sectors otherwise
+        m.loop_edges = [(a, b) for a, b in m.loop_edges if (a < kf_cut) == (b < kf_cut)]
 
 
 def anchor_err(R_arr, t_arr, a, b, gt_R, gt_t):
