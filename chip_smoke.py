@@ -61,8 +61,21 @@ Phases, one line each:
                closer's five calls, on the inputs it built (phase kernels'
                loop shapes: Sim3 match, two SearchBySim3 expansion rounds of
                B = 2, verification, SearchAndFuse of B = 10).
+  7. system  — the System facade (plslam_torch.models.system) through its
+               public API on the room's first frames: (a) 60 frames with
+               both workers asynchronous, loop closing, the dense cloud and
+               tracing, then the TUM, keyframe, KITTI and PCD savers and
+               shutdown (60 unit-quaternion rows, healed ATE < 3 cm, > 10,000
+               cloud points, a "frame" trace record a retired frame, both
+               kernels launched); (b) compaction after 12 of 24 frames
+               (slots reclaimed, observation tables consistent, tracking
+               goes on); (c) 15 frames mapped, saved, loaded into a
+               localization-only System, which starts LOST, relocalizes
+               within 5 cm and mints no keyframe. Wall time of each, fps of
+               (a).
 Then a JSON line of per-kernel numbers (launches: the mapping phase,
-which is bench.py's path; the main, reloc and loop phases' beside them), the
+which is bench.py's path; the main, reloc, loop and system phases' beside
+them), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -75,6 +88,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1434,6 +1448,143 @@ def check_loop_shapes(inputs):
     return out
 
 
+SYSTEM_FRAMES = 60  # sub-phase (a)
+SYSTEM_ATE_M = 0.03  # tests/test_system.py's bar on the healed TUM file
+SYSTEM_RELOC_M = 0.05  # tests/test_checkpoint.py's bar after relocalizing
+
+
+def _metres(frames, cfg):
+    """The room's frames as System.track_rgbd takes them: depth in metres."""
+    f = np.float32(cfg.tracking.depth_map_factor)
+    return [(g, d.astype(np.float32) / f) for g, d in frames]
+
+
+def _launches():
+    from plslam_torch.ops import fast, hamming
+
+    return {"fast_score_nms": fast.fast_score_nms.launches,
+            "hamming_top2": hamming.hamming_top2.launches
+            + hamming.hamming_top2_batched.launches}
+
+
+def system_phase(cfg, dev, frames, poses, tmp):
+    """The System facade, through its public API on the card, at 640x480 on
+    the room's frames: (a) tests/test_system.py's full pipeline (both
+    workers asynchronous, loop closing, dense cloud, tracing) over 60
+    frames, then the four savers and shutdown; (b) compaction mid-run
+    (tests/test_checkpoint.py::test_arena_compaction_mid_run); (c) save,
+    load into a localization-only System and relocalize
+    (tests/test_checkpoint.py::test_localization_against_loaded_map).
+    Every count is set to 0 just before (a) and read after (a) and (c)."""
+    import torch
+
+    from plslam_torch.models.system import System
+    from plslam_torch.models.tracking import LOST, OK
+    from plslam_torch.utils import tum_io
+
+    metres = _metres(frames, cfg)
+    gt = np.array([-(R.T @ t) for R, t in poses])
+    res = {}
+    # (a) full pipeline and savers
+    _reset_counts()
+    t0 = time.perf_counter()
+    n = SYSTEM_FRAMES
+    slam = System(cfg, enable_loop_closing=True, enable_dense_cloud=True, async_mapping=True,
+                  trace_path=str(tmp / "trace.jsonl"), device=dev)
+    for i, (g, d) in enumerate(metres[:n]):
+        slam.track_rgbd(g, d, i / 30.0)
+    slam.tracker.flush()
+    torch.cuda.synchronize()
+    tracked = time.perf_counter() - t0
+    paths = {k: str(tmp / f"{k}.txt") for k in ("tum", "kf", "kitti")}
+    paths["pcd"] = str(tmp / "result.pcd")
+    slam.save_trajectory_tum(paths["tum"])
+    slam.save_keyframe_trajectory_tum(paths["kf"])
+    slam.save_trajectory_kitti(paths["kitti"])
+    slam.save_pcd(paths["pcd"])
+    slam.shutdown()
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches_a = _launches()
+    for w in (slam.local_mapper, slam.loop_closer):
+        require(w.error is None, f"{type(w).__name__} failed: {w.error!r}")
+    ts, pos, quat = tum_io.load_trajectory_tum(paths["tum"])
+    require(len(ts) == n, f"TUM file has {len(ts)} rows for {n} frames")
+    require(np.all(np.abs(np.linalg.norm(quat, axis=1) - 1) < 1e-3), "non-unit quaternions")
+    require(np.isfinite(pos).all(), "non-finite positions")
+    ate_healed = tum_io.ate_rmse(ts, pos, np.arange(n) / 30.0, gt[:n])
+    require(ate_healed < SYSTEM_ATE_M, f"healed ATE {ate_healed:.4f} m")
+    kitti = [line.split() for line in open(paths["kitti"])]
+    require(len(kitti) == n and all(len(r) == 12 for r in kitti), "KITTI rows")
+    kf_rows = len(open(paths["kf"]).read().splitlines())
+    require(kf_rows == int(slam.map.kf_valid.sum()) >= 2, f"{kf_rows} keyframe rows")
+    head = open(paths["pcd"]).read(400)
+    require("DATA ascii" in head and "POINTS" in head, "PCD header")
+    n_cloud = len(slam.cloud.cloud()[0])
+    require(n_cloud > 10000, f"{n_cloud} cloud points")
+    recs = [json.loads(line) for line in open(tmp / "trace.jsonl")]
+    frame_recs = [r for r in recs if r["kind"] == "frame"]
+    require(len(frame_recs) >= n - 5 and all(
+        {"frame", "state", "local_inliers", "n_kf"} <= set(r) for r in frame_recs),
+        f"{len(frame_recs)} frame records")
+    require(launches_a["fast_score_nms"] > 0 and launches_a["hamming_top2"] > 0,
+            f"launches {launches_a}")
+    res["full"] = dict(frames=n, fps=n / tracked, seconds=wall_a, keyframes=slam.map.n_kf,
+                       points=slam.map.n_points(), lines=slam.map.n_lines(),
+                       ate_healed_cm=ate_healed * 100, cloud_points=n_cloud,
+                       trace_frame_records=len(frame_recs), loops=slam.loop_closer.n_loops_closed,
+                       launches=launches_a)
+    # (b) compaction mid-run
+    t0 = time.perf_counter()
+    nb = 24
+    slam = System(cfg, device=dev)
+    for i, (g, d) in enumerate(metres[: nb // 2]):
+        slam.track_rgbd(g, d, i / 30.0)
+    m = slam.map
+    pt_next, n_valid = m._pt_next, m.n_points()
+    require(pt_next > n_valid, f"no erased point to reclaim ({pt_next}, {n_valid})")
+    slam.compact_map()
+    require(m._pt_next == m.n_points() == n_valid, "compaction lost points")
+    for pid in m.point_ids():
+        for kf, feat in m.pt_obs[pid].items():
+            require(m.kf_pt_idx[kf, feat] == pid, f"observation table of point {pid}")
+    ok = sum(slam.track_rgbd(g, d, (nb // 2 + i) / 30.0) is not None
+             for i, (g, d) in enumerate(metres[nb // 2: nb]))
+    slam.shutdown()
+    require(slam.tracking_state == OK and ok >= nb // 2 - 4,
+            f"after compaction: state {slam.tracking_state}, {ok} poses")
+    res["compaction"] = dict(seconds=time.perf_counter() - t0, pt_next_before=pt_next,
+                             points=n_valid, poses_after=ok)
+    # (c) save, load, relocalize
+    t0 = time.perf_counter()
+    nc = 15
+    slam = System(cfg, device=dev)
+    for i, (g, d) in enumerate(metres[:nc]):
+        slam.track_rgbd(g, d, i / 30.0)
+    slam.shutdown()
+    path = str(tmp / "map.npz")
+    slam.save_map(path)
+    loc = System(cfg, localization_only=True, device=dev)
+    loc.load_map(path)
+    require(loc.tracking_state == LOST, f"state {loc.tracking_state} after load_map")
+    n_kf = loc.map.n_kf
+    got = [loc.track_rgbd(g, d, 10.0 + i / 30.0) for i, (g, d) in enumerate(metres[:nc])]
+    loc.shutdown()
+    oks = sum(p is not None for p in got)
+    R, t = loc.tracker.last_pose
+    R0, t0_ = poses[0]
+    gR, gt_ = poses[nc - 1]
+    err = float(np.linalg.norm(-(R.T @ t) - (R0 @ (-(gR.T @ gt_)) + t0_)))
+    require(loc.tracking_state == OK and oks >= 5, f"state {loc.tracking_state}, {oks} poses")
+    require(err < SYSTEM_RELOC_M, f"relocalized centre {err:.4f} m off")
+    require(loc.map.n_kf == n_kf, "localization minted keyframes")
+    res["relocalize"] = dict(seconds=time.perf_counter() - t0, keyframes=n_kf, poses=oks,
+                             first_pose_at=next(i for i, p in enumerate(got) if p is not None),
+                             center_error_cm=err * 100)
+    res["launches"] = _launches()
+    return res
+
+
 def render(cfg, seed, poses):
     """uint8 gray and uint16 depth frames of RoomScene(seed) at ``poses``."""
     from plslam_torch.utils.synthetic import RoomScene
@@ -1502,6 +1653,11 @@ def main() -> int:
     kernels[1]["loop_shapes"] = check_loop_shapes(loop_inputs)
     log("phase kernels (loop shapes): ok, kernel 2 exactly equal to its plain version at "
         "the loop closer's five calls")
+    with tempfile.TemporaryDirectory() as tmp:
+        sres = system_phase(cfg, dev, frames, poses, Path(tmp))
+    log("phase system: ok, " + json.dumps(sres))
+    for k, name in enumerate(("fast_score_nms", "hamming_top2")):
+        kernels[k]["launches_system_phase"] = sres["launches"][name]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

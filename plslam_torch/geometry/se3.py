@@ -150,3 +150,67 @@ def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     for _ in range(2):
         R = 0.5 * (3.0 * R - R @ (R.mT @ R))
     return R
+
+
+# ---------------------------------------------------------------------------
+# Quaternions (x, y, z, w) — the TUM trajectory format's order, used by the
+# reference's savers (System.cc:337-487).
+# ---------------------------------------------------------------------------
+
+
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (through float64: the CPU
+    build's vectorised float32 sqrt is off by one ulp on ~0.6% of inputs)."""
+    return torch.sqrt(x.double()).float()
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4) as (x, y, z,
+    w), branch-free: the four candidate constructions, the one of the
+    largest score (the first on a tie, as the JAX package's argmax), then
+    normalised. The JAX package's float32 arithmetic element for element:
+    correctly rounded square roots, and the norm's sum of squares as its
+    compiled CPU reduction does it, a chain of fused multiply-adds (each
+    emulated exactly in float64)."""
+    R = R.float()
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw_t = _sqrt32((1.0 + tr).clamp(min=_EPS)) * 0.5
+    q0 = torch.stack([(m21 - m12) / (4 * qw_t), (m02 - m20) / (4 * qw_t),
+                      (m10 - m01) / (4 * qw_t), qw_t], -1)
+    qx_t = _sqrt32((1.0 + m00 - m11 - m22).clamp(min=_EPS)) * 0.5
+    q1 = torch.stack([qx_t, (m01 + m10) / (4 * qx_t), (m02 + m20) / (4 * qx_t),
+                      (m21 - m12) / (4 * qx_t)], -1)
+    qy_t = _sqrt32((1.0 - m00 + m11 - m22).clamp(min=_EPS)) * 0.5
+    q2 = torch.stack([(m01 + m10) / (4 * qy_t), qy_t, (m12 + m21) / (4 * qy_t),
+                      (m02 - m20) / (4 * qy_t)], -1)
+    qz_t = _sqrt32((1.0 - m00 - m11 + m22).clamp(min=_EPS)) * 0.5
+    q3 = torch.stack([(m02 + m20) / (4 * qz_t), (m12 + m21) / (4 * qz_t), qz_t,
+                      (m10 - m01) / (4 * qz_t)], -1)
+    cands = torch.stack([q0, q1, q2, q3], -2)
+    scores = torch.stack([tr, m00 - m11 - m22, -m00 + m11 - m22, -m00 - m11 + m22], -1)
+    # torch.argmax returns the first maximal index
+    pick = torch.argmax(scores, -1)
+    q = torch.take_along_dim(cands, pick[..., None, None], -2)[..., 0, :]
+    q64 = q.double()
+    acc = q[..., 0] * q[..., 0]
+    for i in (1, 2, 3):
+        acc = (q64[..., i] * q64[..., i] + acc.double()).float()
+    return q / _sqrt32(acc)[..., None]
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) as (x, y, z, w) -> rotation matrix (..., 3, 3)."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = 2.0 / torch.where(n > 0, n, torch.ones_like(n))
+    xx, yy, zz = x * x * s, y * y * s, z * z * s
+    xy, xz, yz = x * y * s, x * z * s, y * z * s
+    wx, wy, wz = w * x * s, w * y * s, w * z * s
+    return torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], -1),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], -1),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], -1),
+    ], -2)

@@ -21,7 +21,7 @@ from . import se3
 _EPS = 1e-7
 
 
-def identity(dtype=torch.float32, device="cpu"):
+def identity(dtype=torch.float32, device="cuda"):
     return (torch.ones((), dtype=dtype, device=device), torch.eye(3, dtype=dtype, device=device),
             torch.zeros(3, dtype=dtype, device=device))
 

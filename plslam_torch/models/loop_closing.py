@@ -39,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -78,11 +79,33 @@ def loop_generator(device, kf1: int, rnd: int) -> torch.Generator:
     return g
 
 
-def _pair_arrays(m: SlamMap, kf1, kf2, p1, p2, ok, idx):
+class _PairSnapshot(NamedTuple):
+    """What the relative-pose solve reads of the live map, copied under the
+    map lock: the landmark positions of kf1's and kf2's features (row per
+    feature; rows of features without a landmark are landmark 0's, never
+    read) and both keyframes' poses. A local BA written back in the middle
+    of the solve cannot tear it."""
+
+    pos1: np.ndarray
+    pos2: np.ndarray
+    R1: np.ndarray
+    t1: np.ndarray
+    R2: np.ndarray
+    t2: np.ndarray
+
+    @classmethod
+    def take(cls, m: SlamMap, kf1, kf2, p1, p2):
+        return cls(m.pt_pos[np.clip(p1, 0, None)], m.pt_pos[np.clip(p2, 0, None)],
+                   m.kf_R[kf1].copy(), m.kf_t[kf1].copy(), m.kf_R[kf2].copy(),
+                   m.kf_t[kf2].copy())
+
+
+def _pair_arrays(snap, ok, idx):
     """Camera-frame 3D pairs of the matched landmarks, padded to
-    SIM3_PAIRS: (src = kf2's, dst = kf1's, valid)."""
-    x1 = m.pt_pos[p1[ok]] @ m.kf_R[kf1].T + m.kf_t[kf1]
-    x2 = m.pt_pos[p2[idx[ok]]] @ m.kf_R[kf2].T + m.kf_t[kf2]
+    SIM3_PAIRS: (src = kf2's, dst = kf1's, valid). ``snap`` is the
+    :class:`_PairSnapshot` taken under the map lock."""
+    x1 = snap.pos1[ok] @ snap.R1.T + snap.t1
+    x2 = snap.pos2[idx[ok]] @ snap.R2.T + snap.t2
     src = np.zeros((SIM3_PAIRS, 3), np.float32)
     dst = np.zeros((SIM3_PAIRS, 3), np.float32)
     val = np.zeros(SIM3_PAIRS, bool)
@@ -231,7 +254,9 @@ class LoopCloser:
                 return None
             d1 = m.device_frame(kf1)
             d2 = m.device_frame(kf2)
+            h1, h2 = m.kf_frames[kf1], m.kf_frames[kf2]
             pt_desc2 = m.point_desc_arena()[up(np.clip(p2, 0, None).astype(np.int64))]
+            snap = _PairSnapshot.take(m, kf1, kf2, p1, p2)
         gate = up(has1)[:, None] & up(has2)[None, :]
         mm = matching.match_descriptors(d1.kp_desc, d2.kp_desc, gate, 60,
                                         nn_ratio=cfg.matcher.nn_ratio_reloc, dedupe=True)
@@ -239,7 +264,7 @@ class LoopCloser:
         n_match = int(ok.sum())
         if n_match < SIM3_MATCH_MIN:
             return None
-        src, dst, val = _pair_arrays(m, kf1, kf2, p1, p2, ok, idx)
+        src, dst, val = _pair_arrays(snap, ok, idx)
         s, R12, t12, _, n_inl = ransac(src, dst, val, 0)
         # a small coherent seed bootstraps the expansion; the >= 20 bar
         # applies after it
@@ -250,10 +275,9 @@ class LoopCloser:
         # image at the current estimate harvest the matches the
         # appearance-only ratio test missed; wide radius from the seed, then
         # tighter from the refined similarity
-        h1, h2 = m.kf_frames[kf1], m.kf_frames[kf2]
         cam = cfg.camera
         t_desc2 = torch.stack([d2.kp_desc, pt_desc2])
-        x2_all = m.pt_pos[np.clip(p2, 0, None)] @ m.kf_R[kf2].T + m.kf_t[kf2]
+        x2_all = snap.pos2 @ snap.R2.T + snap.t2
         s_n = 0
         for rnd, rad in ((1, 15.0), (2, 9.0)):
             s0 = float(s)
@@ -270,7 +294,7 @@ class LoopCloser:
             grown = ok2 & ~ok
             ok = ok | grown
             idx = np.where(grown, idx2, idx)
-            src, dst, val = _pair_arrays(m, kf1, kf2, p1, p2, ok, idx)
+            src, dst, val = _pair_arrays(snap, ok, idx)
             s, R12, t12, _, n_inl = ransac(src, dst, val, rnd)
             if int(n_inl) < SIM3_SEED_INLIERS:
                 return None

@@ -402,6 +402,56 @@ class SlamMap:
         out = [okf for _, okf in ordered]
         return out[:k] if k is not None else out
 
+    # ------------------------------------------------------------ compaction
+    def compact(self):
+        """Reclaim erased landmark slots: survivors move to a dense prefix
+        and every id-bearing structure of the map is remapped (the JAX
+        package's ``SlamMap.compact``). Monotonic allocation (``_pt_next``)
+        makes this necessary for unbounded runs; call it at a SAFE SYNC
+        POINT — no frame in flight, workers idle — because the tracker's
+        local map holds landmark ids (``System.compact_map`` orchestrates
+        that). The device descriptor arenas are gathered on the device, after
+        the staged host rows are flushed; survivors keep their rows and the
+        rest is zeroed. Returns (pt_map, ln_map): old id -> new id, -1 for
+        erased."""
+        pt_map = self._compact_arena("pt", ("pt_pos", "pt_desc", "pt_normal", "pt_min_dist",
+                                            "pt_max_dist", "pt_valid", "pt_first_kf",
+                                            "pt_visible", "pt_found"))
+        ln_map = self._compact_arena("ln", ("ln_ep", "ln_desc", "ln_valid", "ln_first_kf",
+                                            "ln_visible", "ln_found", "ln_normal",
+                                            "ln_min_dist", "ln_max_dist"))
+        return pt_map, ln_map
+
+    def _compact_arena(self, kind: str, fields):
+        """One landmark arena of :meth:`compact`: ``kind`` "pt" or "ln"
+        names its attributes, ``fields`` its per-landmark host arrays."""
+        valid = getattr(self, f"{kind}_valid")
+        old = np.nonzero(valid)[0]
+        n = len(old)
+        remap = np.full(valid.shape[0], -1, np.int32)
+        remap[old] = np.arange(n, dtype=np.int32)
+        dev, dirty = f"_{kind}_desc_dev", f"_{kind}_desc_dirty"
+        arena = getattr(self, dev)
+        if arena is not None:
+            # staged host rows first, then the survivors' rows on the device
+            arena = self._flush(arena, getattr(self, dirty), getattr(self, f"{kind}_desc"))
+            packed = torch.zeros_like(arena)
+            packed[:n] = arena.index_select(0, torch.as_tensor(old, device=self.device))
+            setattr(self, dev, packed)
+        else:  # nothing uploaded yet: the staged ids move with their rows
+            setattr(self, dirty, [int(remap[i]) for i in getattr(self, dirty) if remap[i] >= 0])
+        for name in fields:
+            arr = getattr(self, name)
+            moved = arr[old]
+            arr[:] = 0
+            arr[:n] = moved
+        obs = getattr(self, f"{kind}_obs")
+        setattr(self, f"{kind}_obs", [obs[i] for i in old] + [dict() for _ in range(len(obs) - n)])
+        setattr(self, f"_{kind}_next", n)
+        idx = getattr(self, f"kf_{kind}_idx")
+        idx[:] = np.where(idx >= 0, remap[np.clip(idx, 0, None)], -1)
+        return remap
+
     # ------------------------------------------------------------ statistics
     def n_points(self) -> int:
         return int(self.pt_valid.sum())

@@ -34,9 +34,11 @@ temporal points still carry the pose, keeps tracking as visual odometry
 the map is reacquired. A loop closer (models.loop_closing, or its worker
 in models.async_mapping) receives every keyframe after its bag of words;
 the corrections it makes reach this tracker through the gauge-correction
-protocol (``apply_gauge_correction``). The mono and stereo sensors are a
-later part of the port (ROADMAP.md, Queue A) and raise
-``NotImplementedError`` here.
+protocol (``apply_gauge_correction``). With a ``tracer``
+(utils.tracing) every retired frame writes a "frame" record and every
+relocalization a "reloc" record, with the JAX package's fields. The mono
+and stereo sensors are a later part of the port (ROADMAP.md, Queue A) and
+raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from ..geometry import projection as gproj
 from ..geometry import se3
 from ..ops import line_matching, matching
 from ..optim import pose as pose_opt
+from ..utils import tracing
 from . import frame as mframe
 from . import relocalization
 from .frame import FrameData
@@ -449,7 +452,8 @@ class Tracker:
     REFRESH_MAX_FRAMES = 12
 
     def __init__(self, cfg: SlamConfig, slam_map: SlamMap, local_mapper=None,
-                 loop_closer=None, voc=None, kfdb=None, sensor: str = "rgbd"):
+                 loop_closer=None, voc=None, kfdb=None, sensor: str = "rgbd",
+                 tracer=None):
         if sensor != "rgbd":
             raise NotImplementedError(
                 f"sensor={sensor!r}: only RGB-D is ported (mono and stereo are "
@@ -465,6 +469,8 @@ class Tracker:
         self.loop_closer = loop_closer
         self.voc = voc
         self.kfdb = kfdb
+        # structured JSONL records "frame" and "reloc" (utils.tracing)
+        self.tracer = tracer or tracing.NULL
         self.state = NOT_INITIALIZED
         self.frame_id = -1
         self.last_kf_id = -1
@@ -719,6 +725,9 @@ class Tracker:
         # the relocalized pose is in the map's current gauge: drop a
         # correction published for the abandoned pre-LOST state
         self._pending_gauge = None
+        if self.tracer.enabled:
+            self.tracer.emit("reloc", frame=int(self.frame_id), ts=timestamp,
+                             n_lost=int(self.n_lost_frames))
         self.state = OK
         self.vo_mode = False
         self.n_lost_frames = 0
@@ -942,6 +951,12 @@ class Tracker:
             self._record_pose(timestamp, R, t)
 
             need = self._need_new_keyframe(tc, cc, n_in, frame_id=frame_id)
+            if self.tracer.enabled:
+                self.tracer.emit(
+                    "frame", frame=int(frame_id), ts=timestamp, state=self.state,
+                    motion_inliers=n_mi, rescue_inliers=n_rs, local_inliers=n_in,
+                    tracked_close=tc, points=len(lp_ids), lines=len(ll_ids),
+                    kf=need, n_kf=self.map.n_kf)
         if need:
             host = _host_frame(cfg, kp_xy_un, kp_octave, kp_depth, kp_valid,
                                ln_ep_un, ln_desc, ln_depth, ln_valid)

@@ -41,6 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .checkpoint import save_map
 
 def orbit_poses(n, radius=0.45):
     """tests/test_loop_closing.py::orbit_poses (world-to-camera)."""
@@ -110,34 +111,6 @@ class Recorder:
                                     s=round(time.perf_counter() - self.t0, 3), **kw))
 
 
-def save_map_npz(m, path, extra):
-    """The port map in the JAX package's checkpoint layout (its ``save_map``)."""
-    from ..models.frame import FrameData
-
-    pt = ("pt_pos", "pt_normal", "pt_min_dist", "pt_max_dist", "pt_valid", "pt_first_kf",
-          "pt_visible", "pt_found")
-    ln = ("ln_ep", "ln_valid", "ln_first_kf", "ln_visible", "ln_found", "ln_normal",
-          "ln_min_dist", "ln_max_dist")
-    kf = ("kf_R", "kf_t", "kf_valid", "kf_frame_id", "kf_timestamp", "kf_pt_idx", "kf_ln_idx",
-          "kf_parent", "kf_cull_parent", "kf_cull_Rcp", "kf_cull_tcp")
-    data = {f: np.asarray(getattr(m, f)).copy() for f in pt + ln + kf}
-    data.update(n_kf=np.int64(m.n_kf), pt_next=np.int64(m._pt_next),
-                ln_next=np.int64(m._ln_next), big_change_idx=np.int64(m.big_change_idx),
-                pt_desc=m.point_desc_arena().cpu().numpy(),
-                ln_desc=m.line_desc_arena().cpu().numpy(),
-                loop_edges=np.array(m.loop_edges, np.int64).reshape(-1, 2))
-    for name, obs, n in (("pt_obs", m.pt_obs, m._pt_next), ("ln_obs", m.ln_obs, m._ln_next)):
-        data[name] = np.array([(i, k, f) for i in range(n) for k, f in obs[i].items()],
-                              np.int64).reshape(-1, 3)
-    kfs = [k for k in range(m.n_kf) if m.kf_valid[k]]
-    data["kf_rows"] = np.array(kfs, np.int64)
-    for field in FrameData._fields:
-        data[f"fd_{field}"] = np.stack([getattr(m.device_frame(k), field).cpu().numpy()
-                                        for k in kfs])
-    data.update(extra)
-    np.savez_compressed(path, **data)
-
-
 def run_variant(variant, cfg, frames, poses, dev, out_dir, dump_end=False):
     from ..bow.database import KeyFrameDatabase
     from ..bow.vocabulary import Vocabulary
@@ -197,7 +170,7 @@ def run_variant(variant, cfg, frames, poses, dev, out_dir, dump_end=False):
                 if not dumped:
                     path = Path(out_dir) / f"orbit_probe_{variant}_map.npz"
                     fid = m.kf_frame_id[:m.n_kf]
-                    save_map_npz(m, path, dict(
+                    save_map(m, path, dict(
                         kf1=np.int64(kf1), kf2=np.int64(kf2), R12=np.asarray(R12, np.float32),
                         t12=np.asarray(t12, np.float32), s12=np.float32(s12),
                         kf_orbit_frame=np.array([rec.frame_of.get(int(f), -1) for f in fid])))
@@ -255,7 +228,7 @@ def run_variant(variant, cfg, frames, poses, dev, out_dir, dump_end=False):
             raise RuntimeError(f"worker error: {w.error!r}")
     if dump_end:
         path = Path(out_dir) / f"orbit_probe_{variant}_end.npz"
-        save_map_npz(m, path, dict(kf_orbit_frame=np.array(
+        save_map(m, path, dict(kf_orbit_frame=np.array(
             [rec.frame_of.get(int(f), -1) for f in m.kf_frame_id[:m.n_kf]])))
         dumped.append(str(path))
     errs = rec.kf_errs()

@@ -3,7 +3,10 @@
 Every module of the port is imported in a fresh interpreter with ``jax``
 blocked (``sys.modules["jax"] = None`` makes any import of it fail), and
 the sources are searched for imports of jax or any mention of the JAX
-package's name. Importing a module builds no kernel and needs no GPU.
+package's name. Importing a module builds no kernel and needs no GPU. The
+card's host has no OpenCV and no matplotlib: they are blocked in that
+interpreter too, and no source imports them at module level (the TUM
+reader and the viewer import them inside their functions).
 """
 
 import os
@@ -34,6 +37,8 @@ def test_every_module_imports_with_jax_blocked():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             f"sys.modules['{JAX_PKG}'] = None\n"
+            "sys.modules['cv2'] = None\n"
+            "sys.modules['matplotlib'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -59,6 +64,21 @@ def test_loop_closing_modules_are_covered():
                  "models.async_mapping"):
         assert "plslam_torch." + name in mods
         assert os.path.join(PKG, *name.split(".")) + ".py" in set(_sources())
+
+
+SYSTEM_SLICE = ("models.system", "models.pointcloud", "utils.tracing", "utils.tum_io",
+                "utils.evaluate", "utils.checkpoint", "utils.gctune", "utils.viewer",
+                "utils.run_tum")
+
+
+@pytest.mark.parametrize("name", SYSTEM_SLICE)
+def test_system_slice_modules_are_covered(name):
+    """The System slice's modules are among those imported above and
+    searched below, and import OpenCV and matplotlib only inside functions."""
+    assert "plslam_torch." + name in set(_modules())
+    path = os.path.join(PKG, *name.split(".")) + ".py"
+    assert path in set(_sources())
+    assert not re.search(r"^(import|from)\s+(cv2|matplotlib)\b", open(path).read(), re.M)
 
 
 def _sources():

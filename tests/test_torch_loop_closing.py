@@ -17,7 +17,8 @@ and map and keyframe database are carried to the port with
   ``kfdb_from_numpy``;
 - ``_compute_relative`` against the old keyframes with the RANSAC draws
   the JAX package makes injected: the same accept / reject, R12 / t12
-  within 1e-3;
+  within 1e-3; and, port-only, the same result when the map moves while
+  the solve runs outside the lock (it reads a snapshot);
 - the SearchBySim3 matcher's B = 2 combination equals the plain top-1 of
   the elementwise minimum, ties included.
 
@@ -261,6 +262,59 @@ def test_compute_relative_with_jax_draws(jax_severed, port_parts, monkeypatch):
             np.testing.assert_allclose(tt, np.asarray(jt), atol=1e-3)
             assert abs(ts - js) < 1e-3
     assert any(outcomes) and not all(outcomes), outcomes  # both verdicts were compared
+
+
+class _TearingLock:
+    """The closer's map lock, wrapped: the first release moves every map
+    point and kf2's translation by 0.5 m (a local BA write-back landing while
+    the solve runs unlocked), the next acquire puts them back, so the locked
+    sections see the map as it was."""
+
+    def __init__(self, lock, m, kf2):
+        self.lock, self.m, self.kf2 = lock, m, kf2
+        self.releases = 0
+        self.saved = None
+
+    def __enter__(self):
+        self.lock.__enter__()
+        if self.saved is not None:
+            self.m.pt_pos[:], self.m.kf_t[self.kf2] = self.saved
+            self.saved = None
+        return self
+
+    def __exit__(self, *exc):
+        self.releases += 1
+        if self.releases == 1:
+            self.saved = (self.m.pt_pos.copy(), self.m.kf_t[self.kf2].copy())
+            self.m.pt_pos += 0.5
+            self.m.kf_t[self.kf2] += 0.5
+        return self.lock.__exit__(*exc)
+
+
+def test_compute_relative_reads_a_snapshot(jax_severed, port_parts, monkeypatch):
+    """The relative-pose solve runs outside the map lock; what it reads of
+    the map (landmark positions, both keyframes' poses) is copied under the
+    lock, so a write-back landing mid-solve leaves its result unchanged."""
+    jlc, tlc = _closers(jax_severed, port_parts)
+    k1 = _newest(jlc.map)
+    draws = _jax_draws(monkeypatch)
+    for k2 in range(min(jax_severed[4], 4)):
+        draws.clear()
+        if jlc._compute_relative(k1, k2) is not None:
+            break
+    else:
+        pytest.fail("no accepted loop pair")
+    samples = [torch.from_numpy(d.copy()) for d in draws] + [None] * (3 - len(draws))
+    want = tlc._compute_relative(k1, k2, horn_samples=samples)
+    assert want is not None
+    tear = _TearingLock(tlc.lock, tlc.map, k2)
+    tlc.lock = tear
+    got = tlc._compute_relative(k1, k2, horn_samples=samples)
+    assert tear.releases == 2 and tear.saved is None
+    assert got is not None
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2:] == want[2:]
 
 
 def test_min_of_two_is_the_top1_of_the_minimum():

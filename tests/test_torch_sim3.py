@@ -86,7 +86,7 @@ def test_compose_inverse_apply_equal_jax():
 
 
 def test_identity():
-    s, R, t = sim3.identity()
+    s, R, t = sim3.identity(device="cpu")
     js, jR, jt = jsim3.identity()
     assert float(s) == float(js)
     np.testing.assert_array_equal(R.numpy(), np.asarray(jR))
