@@ -32,7 +32,23 @@ Phases, one line each:
                launch and run counts that prove fusion, the batched Hamming
                launch and BA ran, fps, latency, and ATE as tracked and as
                healed against the keyframes BA moved.
-  5. reloc   — relocalization and localization-only tracking, through
+  5. stereo  — the stereo sensor on tests/test_stereo.py's scenario at its
+               width (640x480, bf 40; 25 pairs of the room, the right image
+               rendered bf / fx to the right): frame 0's stereo depth on the
+               card (> 200 keypoints, median relative error < 3%), then the
+               pairs through System(sensor="stereo").track_stereo: state OK,
+               >= 1 keyframe, >= 23 rows, ATE < 3 cm, two FAST launches and
+               one stereo-band Hamming launch a frame; fps and latency.
+     mono    — the monocular sensor on tests/test_mono.py's scenario (40
+               frames) through System(sensor="mono").track_monocular:
+               fix_scale off, the bootstrap's frame, model and score ratio,
+               state OK, >= 2 keyframes, > 100 points, >= 30 rows, < 5 cm
+               after a similarity alignment, >= 1 epipolar Hamming launch
+               from the mapper; three identical frames stay NOT_INITIALIZED.
+               Then kernel 2 on the inputs these phases gave it (the stereo
+               band, the bootstrap's 100 px window, the epipolar gate),
+               each exactly equal to its plain version, timed.
+  6. reloc   — relocalization and localization-only tracking, through
                Tracker(cfg, m, local_mapper=LocalMapper(cfg, m, kfdb=kfdb),
                voc=voc, kfdb=kfdb) with the port's default vocabulary and
                no lines. Blackout: 15 tracked frames, 4 blackout frames
@@ -47,7 +63,7 @@ Phases, one line each:
                to only_tracking with local BA off and replay the orbit; VO
                mode must engage, no frame may be LOST, the map must be
                reacquired, no keyframe minted, the final pose within 30 cm.
-  6. loop    — loop closing through Tracker(cfg, m, local_mapper=
+  7. loop    — loop closing through Tracker(cfg, m, local_mapper=
                AsyncLocalMapper(...), loop_closer=AsyncLoopCloser(
                LoopCloser(...)), voc=voc, kfdb=kfdb): the 150-frame orbit of
                RoomScene(3) with both workers, the old half of the map then
@@ -61,7 +77,7 @@ Phases, one line each:
                closer's five calls, on the inputs it built (phase kernels'
                loop shapes: Sim3 match, two SearchBySim3 expansion rounds of
                B = 2, verification, SearchAndFuse of B = 10).
-  7. system  — the System facade (plslam_torch.models.system) through its
+  8. system  — the System facade (plslam_torch.models.system) through its
                public API on the room's first frames: (a) 60 frames with
                both workers asynchronous, loop closing, the dense cloud and
                tracing, then the TUM, keyframe, KITTI and PCD savers and
@@ -74,8 +90,8 @@ Phases, one line each:
                within 5 cm and mints no keyframe. Wall time of each, fps of
                (a).
 Then a JSON line of per-kernel numbers (launches: the mapping phase,
-which is bench.py's path; the main, reloc, loop and system phases' beside
-them), the
+which is bench.py's path; the main, stereo, mono, reloc, loop and system
+phases' beside them), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -1406,19 +1422,9 @@ def check_loop_shapes(inputs):
     missing = [k for k in want_kinds if k not in inputs]
     require(not missing, f"phase loop made no call at the shapes {missing}")
     out = []
-    hamming.dense_tiles()
     for kind in want_kinds:
         fn_name, q, t, gate = inputs[kind]
-        fn = getattr(hamming, fn_name)
-        plain = getattr(hamming, fn_name + "_plain")
-        got = fn(q, t, gate)
-        tiles = hamming.dense_tiles()
-        want = plain(q, t, gate)
-        torch.cuda.synchronize()
-        for a, b, what in zip(got, want, ("best", "idx", "second")):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{fn_name} {what} differs at the loop's {kind}: "
-                                     f"{(a != b).sum().item()} rows")
+        out.append(hold_and_time(f"loop {kind}", fn_name, q, t, gate))
         if kind.startswith("expansion"):
             mt = matching.match_min_of_two(q, t, gate[0], 50)
             dmin = torch.minimum(hamming.hamming_matrix(q, t[0]), hamming.hamming_matrix(q, t[1]))
@@ -1427,25 +1433,49 @@ def check_loop_shapes(inputs):
                 if not torch.equal(a, b):
                     raise AssertionError(f"min-of-two {what} differs at the loop's {kind}: "
                                          f"{(a != b).sum().item()} rows")
-        n, m_ = gate.shape[-2:]
-        batch = gate.numel() // (n * m_)
-        nnz = int(gate.sum())
-        t_k, d_k = timings(lambda: fn(q, t, gate))
-        hamming.dense_tiles()
-        t_p, d_p = timings(lambda: plain(q, t, gate))
-        t_l, d_l = matmul_yardstick(q, t)
-        b, by = bound(gate.numel() + 32 * n + 32 * batch * m_ + 12 * batch * n,
-                      HAMMING_OPS_PER_PAIR * nnz, INT8_TC_OPS_S)
-        shape = f"{batch} x {n}x{m_}" if fn_name.endswith("batched") else f"{n}x{m_}"
-        log(f"  {fn_name} loop {kind} {shape}: gated {nnz} pairs, {tiles} of "
-            f"{batch * -(-n // 16) * -(-m_ // 512)} tiles on the tensor cores; kernel "
-            f"{t_k:.4f} ms (device {d_k:.4f}), plain {t_p:.4f} ms (device {d_p:.4f}), matmul on "
-            f"unpacked bits {t_l:.4f} ms (device {d_l:.4f}), bound {b * 1e3:.3f} us ({by})")
-        out.append(dict(shape=f"loop {kind} {shape}", launch=fn_name, gated_pairs=nnz,
-                        dense_tiles=tiles, ms=t_k, device_ms=d_k, plain_ms=t_p,
-                        plain_device_ms=d_p, library_ms=t_l, library_device_ms=d_l,
-                        bound_ms=b, bound_by=by))
     return out
+
+
+def hold_and_time(label, fn_name, q, t, gate):
+    """Kernel 2 (``fn_name``: hamming_top2 or hamming_top2_batched) on
+    recorded inputs: exactly equal to its plain version, then timed eager
+    and on the device beside the plain version and torch.matmul on the
+    unpacked bits, with its bound (the gate's bytes, both descriptor sets
+    and the three outputs, against the tensor-core rate for the gated
+    pairs). Returns the record of the shape."""
+    import torch
+
+    from plslam_torch.ops import hamming
+
+    fn = getattr(hamming, fn_name)
+    plain = getattr(hamming, fn_name + "_plain")
+    hamming.dense_tiles()
+    got = fn(q, t, gate)
+    tiles = hamming.dense_tiles()
+    want = plain(q, t, gate)
+    torch.cuda.synchronize()
+    for a, b, what in zip(got, want, ("best", "idx", "second")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{fn_name} {what} differs at the {label}: "
+                                 f"{(a != b).sum().item()} rows")
+    n, m_ = gate.shape[-2:]
+    batch = gate.numel() // (n * m_)
+    nnz = int(gate.sum())
+    t_k, d_k = timings(lambda: fn(q, t, gate))
+    hamming.dense_tiles()
+    t_p, d_p = timings(lambda: plain(q, t, gate))
+    t_l, d_l = matmul_yardstick(q, t)
+    b, by = bound(gate.numel() + 32 * n + 32 * batch * m_ + 12 * batch * n,
+                  HAMMING_OPS_PER_PAIR * nnz, INT8_TC_OPS_S)
+    shape = f"{batch} x {n}x{m_}" if fn_name.endswith("batched") else f"{n}x{m_}"
+    log(f"  {fn_name} {label} {shape}: gated {nnz} pairs, {tiles} of "
+        f"{batch * -(-n // 16) * -(-m_ // 512)} tiles on the tensor cores; kernel "
+        f"{t_k:.4f} ms (device {d_k:.4f}), plain {t_p:.4f} ms (device {d_p:.4f}), matmul on "
+        f"unpacked bits {t_l:.4f} ms (device {d_l:.4f}), bound {b * 1e3:.3f} us ({by})")
+    return dict(shape=f"{label} {shape}", launch=fn_name, gated_pairs=nnz,
+                dense_tiles=tiles, max_abs_err=0.0, ms=t_k, device_ms=d_k, plain_ms=t_p,
+                plain_device_ms=d_p, library_ms=t_l, library_device_ms=d_l,
+                bound_ms=b, bound_by=by)
 
 
 SYSTEM_FRAMES = 60  # sub-phase (a)
@@ -1585,6 +1615,244 @@ def system_phase(cfg, dev, frames, poses, tmp):
     return res
 
 
+STEREO_FRAMES = 25        # tests/test_stereo.py's scenario and bars
+STEREO_ATE_M = 0.03
+STEREO_DEPTH_POINTS = 200
+STEREO_DEPTH_REL = 0.03
+MONO_FRAMES = 40          # tests/test_mono.py's scenario and bars
+MONO_SIM_RMSE_M = 0.05
+MONO_POINTS = 100
+
+
+class HammingProbe:
+    """For the stages named, each a module function wrapped while the probe
+    is active: the inputs of the first kernel-2 call made inside the stage
+    and the launches made inside it, read from the wrapper's own count
+    (``matching.hamming`` is swapped for a recording proxy)."""
+
+    def __init__(self, stages):
+        import threading
+
+        self.stages = stages  # {kind: (module, function name)}
+        self.inputs = {}
+        self.launches = {k: 0 for k in stages}
+        self._stage = threading.local()
+        self._saved = []
+
+    def __enter__(self):
+        from plslam_torch.ops import hamming, matching
+
+        def recording(q, t, gate):
+            kind = getattr(self._stage, "name", None)
+            before = hamming.hamming_top2.launches
+            out = hamming.hamming_top2(q, t, gate)
+            if kind is not None:
+                self.launches[kind] += hamming.hamming_top2.launches - before
+                self.inputs.setdefault(kind, ("hamming_top2", q, t, gate))
+            return out
+
+        class Proxy:
+            hamming_top2 = staticmethod(recording)
+
+            def __getattr__(self, name):
+                return getattr(hamming, name)
+
+        def staged(kind, fn):
+            def run(*a, **kw):
+                self._stage.name = kind
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self._stage.name = None
+            return run
+
+        self._saved = [(matching, "hamming", hamming)]
+        matching.hamming = Proxy()
+        for kind, (mod, name) in self.stages.items():
+            self._saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, staged(kind, getattr(mod, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        return False
+
+
+def _latency(per_frame):
+    ms = np.array(per_frame) * 1e3
+    return dict(p50_ms=float(np.percentile(ms, 50)), p90_ms=float(np.percentile(ms, 90)),
+                max_ms=float(ms.max()))
+
+
+def stereo_phase(cfg, dev):
+    """The stereo sensor: tests/test_stereo.py's scenario at its own width
+    (640x480, fx 525, bf 40; RoomScene(0), smooth_trajectory(50)[:25], the
+    right image rendered bf / fx to the right). Frame 0's stereo depth
+    through build_frame_stereo on the card (> 200 keypoints with depth,
+    median relative error < 3%), then the 25 pairs through
+    System(sensor="stereo", async_mapping=False).track_stereo: state OK,
+    >= 1 keyframe, >= 23 rows, ATE < 3 cm; two FAST launches and one
+    stereo-band Hamming launch a frame. Counts set to 0 just before the
+    run, read just after it."""
+    import torch
+
+    from plslam_torch.models import frame as mframe
+    from plslam_torch.models.system import System
+    from plslam_torch.models.tracking import OK
+    from plslam_torch.utils import tum_io
+    from plslam_torch.utils.synthetic import RoomScene, smooth_trajectory
+
+    cam = cfg.camera
+    scene = RoomScene(0)
+    base = np.array([cam.bf / cam.fx, 0, 0], np.float32)
+    n = STEREO_FRAMES
+    poses = smooth_trajectory(2 * n)[:n]
+    pairs = []
+    for R, t in poses:
+        gl, dl = scene.render(cam, R, t)
+        gr, _ = scene.render(cam, R, t - base)
+        pairs.append((np.clip(gl, 0, 255).astype(np.uint8), np.clip(gr, 0, 255).astype(np.uint8)))
+        if len(pairs) == 1:
+            depth0 = dl
+    fd = mframe.build_frame_stereo(*(torch.as_tensor(x, device=dev) for x in pairs[0]), cfg)
+    ok = (fd.kp_valid & (fd.kp_depth > 0)).cpu().numpy()
+    xy = np.round(fd.kp_xy.cpu().numpy()[ok]).astype(int)
+    gt_d = depth0[np.clip(xy[:, 1], 0, cam.height - 1), np.clip(xy[:, 0], 0, cam.width - 1)]
+    rel = float(np.median(np.abs(fd.kp_depth.cpu().numpy()[ok] - gt_d) / np.maximum(gt_d, 1e-6)))
+    require(ok.sum() > STEREO_DEPTH_POINTS, f"{ok.sum()} keypoints with stereo depth")
+    require(rel < STEREO_DEPTH_REL, f"median relative stereo depth error {rel:.4f}")
+
+    slam = System(cfg, sensor="stereo", async_mapping=False, device=dev)
+    per_frame = []
+    _reset_counts()
+    with HammingProbe({"stereo band": (mframe, "build_frame_stereo")}) as probe:
+        t0 = time.perf_counter()
+        for i, (gl, gr) in enumerate(pairs):
+            s = time.perf_counter()
+            slam.track_stereo(gl, gr, i / 30.0)
+            per_frame.append(time.perf_counter() - s)
+        slam.tracker.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launches()
+    tr = slam.tracker
+    slam.shutdown()
+    rows = len(tr.trajectory)
+    require(tr.state == OK, f"tracker state {tr.state} after the run")
+    require(slam.map.n_kf >= 1, f"{slam.map.n_kf} keyframes")
+    require(rows >= n - 2, f"trajectory has {rows} rows for {n} frames")
+    ts = np.array([s for s, _, _ in tr.trajectory])
+    est = np.array([-(R.T @ t) for _, R, t in tr.trajectory])
+    gt = np.array([-(R.T @ t) for R, t in poses])
+    require(np.isfinite(est).all(), "non-finite camera centres")
+    ate_m = tum_io.ate_rmse(ts, est, np.arange(n) / 30.0, gt)
+    require(ate_m < STEREO_ATE_M, f"stereo ATE {ate_m:.4f} m")
+    require(launches["fast_score_nms"] == 2 * n, f"launches {launches}: not two FAST a frame")
+    require(probe.launches["stereo band"] == n,
+            f"{probe.launches['stereo band']} stereo-band Hamming launches for {n} frames")
+    return dict(frames=n, tracked=rows, keyframes=slam.map.n_kf, points=slam.map.n_points(),
+                depth_points=int(ok.sum()), depth_median_rel_err=rel, fps=n / wall,
+                **_latency(per_frame[1:]), ate_rmse_cm=ate_m * 100, launches=launches,
+                stereo_band_launches=probe.launches["stereo band"]), probe.inputs
+
+
+def mono_phase(cfg, dev):
+    """The monocular sensor: tests/test_mono.py's scenario at its own width
+    (RoomScene(0), smooth_trajectory(80)[:40]) through System(sensor="mono",
+    async_mapping=False).track_monocular: fix_scale off, state OK, >= 2
+    keyframes, > 100 points, >= 30 rows, camera centres within 5 cm of
+    ground truth after a similarity alignment; the bootstrap's frame, model
+    (H or F) and score ratio; Hamming launches of the bootstrap's window
+    match and of the mapper's epipolar match (>= 1). Then three identical
+    frames must leave a new System NOT_INITIALIZED with no keyframe."""
+    import torch
+
+    from plslam_torch.models import tracking as mtracking
+    from plslam_torch.models import triangulation
+    from plslam_torch.models.system import System
+    from plslam_torch.utils import evaluate
+    from plslam_torch.utils.synthetic import RoomScene, smooth_trajectory
+
+    cam = cfg.camera
+    scene = RoomScene(0)
+    n = MONO_FRAMES
+    poses = smooth_trajectory(2 * n)[:n]
+    frames = [np.clip(scene.render(cam, R, t)[0], 0, 255).astype(np.uint8) for R, t in poses]
+    slam = System(cfg, sensor="mono", async_mapping=False, device=dev)
+    require(slam.cfg.loop.fix_scale is False, "a monocular System kept fix_scale")
+    per_frame = []
+    boot = None
+    _reset_counts()
+    with HammingProbe({"mono init window": (mtracking, "mono_init_match"),
+                       "mono epipolar": (triangulation, "triangulate_pair_step")}) as probe:
+        t0 = time.perf_counter()
+        for i, g in enumerate(frames):
+            s = time.perf_counter()
+            slam.track_monocular(g, i / 30.0)
+            per_frame.append(time.perf_counter() - s)
+            if boot is None and slam.tracking_state == mtracking.OK:
+                boot = i
+        slam.tracker.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launches()
+    tr = slam.tracker
+    slam.shutdown()
+    rows = len(tr.trajectory)
+    require(tr.state == mtracking.OK, f"tracker state {tr.state} after the run")
+    require(slam.map.n_kf >= 2, f"{slam.map.n_kf} keyframes")
+    require(slam.map.n_points() > MONO_POINTS, f"{slam.map.n_points()} points")
+    require(rows >= n - 10, f"trajectory has {rows} rows for {n} frames")
+    ts = np.array([s for s, _, _ in tr.trajectory])
+    est = np.array([-(R.T @ t) for _, R, t in tr.trajectory])
+    require(np.isfinite(est).all(), "non-finite camera centres")
+    idx = np.clip((ts * 30).round().astype(int), 0, n - 1)
+    gt = np.array([-(poses[i][0].T @ poses[i][1]) for i in idx])
+    sc, R_a, t_a = evaluate.umeyama_alignment(est, gt, with_scale=True)
+    sim_rmse = float(np.sqrt((np.linalg.norm(sc * est @ R_a.T + t_a - gt, axis=1) ** 2).mean()))
+    require(sim_rmse < MONO_SIM_RMSE_M, f"similarity-aligned RMSE {sim_rmse:.4f} m")
+    st = tr.mono_init_stats
+    require(st is not None and st["frame"] == boot and st["clear"], f"bootstrap {st}, {boot}")
+    ratio = st["score_h"] / max(st["score_h"] + st["score_f"], 1e-9)
+    require(probe.launches["mono init window"] >= 1, "no bootstrap window match launched")
+    require(probe.launches["mono epipolar"] >= 1, "no epipolar Hamming launch from the mapper")
+    # no parallax: identical frames must not bootstrap
+    still = System(cfg, sensor="mono", async_mapping=False, device=dev)
+    for i in range(3):
+        still.track_monocular(frames[0], i / 30.0)
+    require(still.tracking_state == mtracking.NOT_INITIALIZED and still.map.n_kf == 0,
+            f"identical frames: state {still.tracking_state}, {still.map.n_kf} keyframes")
+    still.shutdown()
+    return dict(frames=n, tracked=rows, bootstrap_frame=boot, model="H" if ratio > 0.40 else "F",
+                score_ratio_h=ratio, keyframes=slam.map.n_kf, points=slam.map.n_points(),
+                fix_scale=slam.cfg.loop.fix_scale, fps=n / wall, **_latency(per_frame[boot + 1:]),
+                sim_rmse_cm=sim_rmse * 100, scale=sc, launches=launches,
+                mono_init_launches=probe.launches["mono init window"],
+                epipolar_launches=probe.launches["mono epipolar"],
+                no_parallax="NOT_INITIALIZED, 0 keyframes"), probe.inputs
+
+
+def check_sensor_shapes(stereo_inputs, stereo_res, mono_inputs, mono_res):
+    """Kernel 2 at the three shapes the sensor phases gave it, on their
+    recorded inputs: the stereo left-right match (1024 x 1024, row-band /
+    disparity / octave gate), the monocular bootstrap's match (1024 x 1024,
+    100 px window) and the mapper's epipolar match on the monocular map
+    (1024 x 1024); each exactly equal to its plain version, with the
+    launches it made in its phase."""
+    want = (("stereo band", stereo_inputs, stereo_res["stereo_band_launches"]),
+            ("mono init window", mono_inputs, mono_res["mono_init_launches"]),
+            ("mono epipolar", mono_inputs, mono_res["epipolar_launches"]))
+    missing = [k for k, inputs, _ in want if k not in inputs]
+    require(not missing, f"the sensor phases made no call at the shapes {missing}")
+    out = []
+    for kind, inputs, launches in want:
+        rec = hold_and_time(kind, *inputs[kind])
+        rec["launches"] = launches
+        out.append(rec)
+    return out
+
+
 def render(cfg, seed, poses):
     """uint8 gray and uint16 depth frames of RoomScene(seed) at ``poses``."""
     from plslam_torch.utils.synthetic import RoomScene
@@ -1634,6 +1902,17 @@ def main() -> int:
                               + mres["launches"]["hamming_top2_batched"])
     kernels[1]["launches_batched"] = mres["launches"]["hamming_top2_batched"]
     kernels[1]["launches_main_phase"] = res["launches"]["hamming_top2"]
+    st_res, st_inputs = stereo_phase(cfg, dev)
+    log("phase stereo: ok, " + json.dumps(st_res))
+    mo_res, mo_inputs = mono_phase(cfg, dev)
+    log("phase mono: ok, " + json.dumps(mo_res))
+    for phase, r in (("stereo", st_res), ("mono", mo_res)):
+        kernels[0][f"launches_{phase}_phase"] = r["launches"]["fast_score_nms"]
+        kernels[1][f"launches_{phase}_phase"] = r["launches"]["hamming_top2"]
+    kernels[1]["sensor_shapes"] = check_sensor_shapes(st_inputs, st_res, mo_inputs, mo_res)
+    del st_inputs, mo_inputs
+    log("phase kernels (sensor shapes): ok, kernel 2 exactly equal to its plain version at "
+        "the stereo band, the monocular bootstrap window and the epipolar match")
     t0 = time.perf_counter()
     orbit_poses_ = orbit_poses(N_FRAMES)
     orbit = render(cfg, 3, orbit_poses_)

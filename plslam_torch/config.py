@@ -234,6 +234,25 @@ def tum1_config() -> SlamConfig:
     )
 
 
+def tum2_config() -> SlamConfig:
+    """The reference's TUM2.yaml camera (freiburg2)."""
+    cam = Camera(
+        fx=520.908620, fy=521.007327, cx=325.141442, cy=249.701764,
+        k1=0.231222, k2=-0.784899, p1=-0.003257, p2=-0.000105, k3=0.917205,
+        bf=40.0, width=640, height=480,
+    )
+    return SlamConfig(camera=cam)
+
+
+def tum3_config() -> SlamConfig:
+    """The reference's TUM3.yaml camera (freiburg3, undistorted)."""
+    cam = Camera(
+        fx=535.4, fy=539.2, cx=320.1, cy=247.6,
+        bf=40.0, width=640, height=480,
+    )
+    return SlamConfig(camera=cam)
+
+
 def load_yaml(path: str) -> SlamConfig:
     """Load an OpenCV-style settings YAML (the reference's TUM*.yaml format)."""
     import re

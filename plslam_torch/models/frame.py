@@ -1,4 +1,4 @@
-"""Per-frame perception: from (gray, depth) to FrameData, RGB-D.
+"""Per-frame perception: from (gray, depth) or a stereo pair to FrameData.
 
 The reference ``Frame`` RGB-D constructor (Frame.cc:97-205): ORB and line
 extraction (two pthreads there, :152-155; one stream of device work here),
@@ -7,6 +7,10 @@ virtual-right coordinate u_r = u - bf/d for keypoints, endpoint depths for
 keylines, and undistortion following ``UndistortKeyPoints/KeyLines``
 (:737-845). Windowed searches use dense gate matrices, so the reference's
 64x48 keypoint grid is not built.
+
+The stereo constructor (Frame.cc:88-133, ``build_frame_stereo``) runs ORB
+on both images and matches left to right (``ComputeStereoMatches``,
+:888-1062) as one gated descriptor search and one gathered SAD strip.
 """
 
 from __future__ import annotations
@@ -121,4 +125,106 @@ def build_frame(gray: torch.Tensor, depth: torch.Tensor, cfg: SlamConfig,
         kp_ur=ur,
         kp_valid=feats.valid,
         **ln,
+    )
+
+
+def backproject_keypoints(cam, fd: FrameData) -> tuple[torch.Tensor, torch.Tensor]:
+    """Camera-frame 3D of the keypoints with depth (UnprojectStereo,
+    Frame.cc:1124-1140). Returns (p3d (N, 3), ok (N,))."""
+    ok = fd.kp_valid & (fd.kp_depth > 0)
+    return projection.backproject(cam, fd.kp_xy_un, fd.kp_depth), ok
+
+
+def backproject_lines(cam, fd: FrameData) -> tuple[torch.Tensor, torch.Tensor]:
+    """Camera-frame 3D endpoints of the keylines with both depths
+    (UnprojectStereoLineStart/End, with the reference's read of the wrong
+    array at Frame.cc:1192 fixed, as the JAX package does).
+    Returns (ep3d (NL, 2, 3), ok (NL,))."""
+    ok = fd.ln_valid & (fd.ln_depth[:, 0] > 0) & (fd.ln_depth[:, 1] > 0)
+    p0 = projection.backproject(cam, fd.ln_ep_un[:, 0], fd.ln_depth[:, 0])
+    p1 = projection.backproject(cam, fd.ln_ep_un[:, 1], fd.ln_depth[:, 1])
+    return torch.stack([p0, p1], 1), ok
+
+
+SAD_W = 5  # 11x11 SAD window (Frame.cc:986)
+SAD_L = 5  # +-5 px search around the descriptor match
+
+
+def build_frame_stereo(gray_l: torch.Tensor, gray_r: torch.Tensor, cfg: SlamConfig,
+                       quantized: bool = False) -> FrameData:
+    """FrameData of one rectified stereo pair (uint8 or float32 0..255):
+    ORB on both images, a row-band descriptor match left to right, a SAD
+    refinement of the disparity with a parabola fit, depth = bf / disparity.
+    The stereo constructor extracts no lines, so the line block is empty.
+
+    The reference's per-row candidate buckets become one (N_L, N_R) gate
+    (row band 2 * sigma(octave_L), disparity in (0, fx), octaves within
+    one) into ``matching.match_descriptors`` (the Hamming kernel on the
+    card); the sliding 11x11 SAD over +-5 px is one gathered (N, 11, 11, 11)
+    strip. ``quantized=True``: both images hold the tracker's reduced-bit
+    gray, restored here with a half step."""
+    from ..ops import matching
+
+    cam = cfg.camera
+    hw = (cam.height, cam.width)
+    if quantized:
+        gray_l = _unquantize_gray(gray_l, cfg)
+        gray_r = _unquantize_gray(gray_r, cfg)
+    gl = gray_l.float()
+    gr = gray_r.float()
+    fl = orb.extract_orb(gl, cfg.orb)
+    fr = orb.extract_orb(gr, cfg.orb)
+    dev = gl.device
+
+    max_d = cam.fx  # disparity upper bound (maxD, Frame.cc:905)
+    # row band |vL - vR| <= 2 * sigma(octave_L) (Frame.cc:930-940)
+    band = 2.0 * cfg.orb.scale_factor ** fl.octave.float()
+    dv = (fl.xy[:, None, 1] - fr.xy[None, :, 1]).abs()
+    disp = fl.xy[:, None, 0] - fr.xy[None, :, 0]
+    gate = ((dv <= band[:, None]) & (disp > 0.0) & (disp < max_d)
+            & fl.valid[:, None] & fr.valid[None, :]
+            & ((fl.octave[:, None] - fr.octave[None, :]).abs() <= 1))
+    m = matching.match_descriptors(fl.desc, fr.desc, gate, 100)
+    u_r0 = fr.xy[m.idx.long().clamp(0, fr.xy.shape[0] - 1), 0]
+
+    # SAD refinement (Frame.cc:986-1050): mean-normalised 11x11 windows,
+    # the right one slid over +-L px, gathered in one indexed read
+    W, L = SAD_W, SAD_L
+    ys = torch.round(fl.xy[:, 1]).long().clamp(W, hw[0] - W - 1)
+    xl = torch.round(fl.xy[:, 0]).long().clamp(W + L, hw[1] - W - L - 1)
+    xr = torch.round(u_r0).long().clamp(W + L, hw[1] - W - L - 1)
+    r = torch.arange(-W, W + 1, device=dev)
+    dy, dx = r[:, None], r[None, :]
+    patch_l = gl[ys[:, None, None] + dy, xl[:, None, None] + dx]          # (N, 11, 11)
+    offs = torch.arange(-L, L + 1, device=dev)[None, :, None, None]
+    strips = gr[ys[:, None, None, None] + dy,
+                xr[:, None, None, None] + offs + dx]                       # (N, 2L+1, 11, 11)
+    pl = patch_l - patch_l.mean((-2, -1), keepdim=True)
+    ps = strips - strips.mean((-2, -1), keepdim=True)
+    sad = (ps - pl[:, None]).abs().sum((-2, -1))                          # (N, 2L+1)
+    best = torch.argmin(sad, -1)  # the first minimum, as jnp.argmin
+    # parabola subpixel fit (Frame.cc:1030-1043)
+    bi = best.clamp(1, 2 * L - 1)
+    s0 = sad.gather(1, (bi - 1)[:, None])[:, 0]
+    s1 = sad.gather(1, bi[:, None])[:, 0]
+    s2 = sad.gather(1, (bi + 1)[:, None])[:, 0]
+    denom = (s0 + s2 - 2 * s1).clamp(min=1e-6)
+    delta = ((s0 - s2) / (2 * denom)).clamp(-1.0, 1.0)
+    u_r = xr.float() + (bi - L).float() + delta
+
+    disparity = fl.xy[:, 0] - u_r
+    ok = m.ok & (disparity > 0.01) & (disparity < max_d)
+    zero = torch.zeros_like(disparity)
+    depth = torch.where(ok, cam.bf / disparity.clamp(min=1e-6), zero)
+    xy_un = projection.undistort_points(cam, fl.xy)
+    ur = torch.where(ok, xy_un[:, 0] - cam.bf / depth.clamp(min=1e-6), zero - 1.0)
+
+    nl = cfg.lines.max_lines
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
+    return FrameData(
+        kp_xy=fl.xy, kp_xy_un=xy_un, kp_resp=fl.response, kp_octave=fl.octave,
+        kp_angle=fl.angle, kp_desc=fl.desc, kp_depth=depth, kp_ur=ur, kp_valid=fl.valid,
+        ln_ep=z(nl, 2, 2), ln_ep_un=z(nl, 2, 2), ln_angle=z(nl), ln_length=z(nl),
+        ln_coeff=z(nl, 3), ln_desc=torch.zeros((nl, lbd.LBD_DIM), dtype=torch.uint8, device=dev),
+        ln_depth=z(nl, 2), ln_valid=torch.zeros(nl, dtype=torch.bool, device=dev),
     )

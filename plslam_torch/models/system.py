@@ -6,15 +6,17 @@ The port of the JAX package's ``models/system.py``, the equivalent of
 dense-cloud passes (the reference launches std::threads, System.cc:86-118;
 here the passes run in the frame loop, or on the two worker threads of
 models.async_mapping with ``async_mapping=True``), ``track_rgbd`` is the
-per-frame entry (TrackRGBD, :175-230), and the savers emit TUM / KITTI
-trajectories and a PCD cloud (:337-487, :507) byte for byte as the JAX
-package writes them. Every device tensor lives on ``device`` (``cuda``
-unless the caller passes ``"cpu"``). The mono and stereo sensors are
-ROADMAP.md Queue A item 16 and raise ``NotImplementedError``.
+per-frame entry (TrackRGBD, :175-230; ``track_stereo`` and
+``track_monocular`` for the other sensors, :121-174 and :236-280), and the
+savers emit TUM / KITTI trajectories and a PCD cloud (:337-487, :507) byte
+for byte as the JAX package writes them. A monocular System estimates
+loop corrections as Sim(3) (``fix_scale=False``). Every device tensor
+lives on ``device`` (``cuda`` unless the caller passes ``"cpu"``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -29,13 +31,12 @@ from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
 from .map import SlamMap
 from .pointcloud import PointCloudMapper
-from .tracking import LOST, OK, Tracker
+from .tracking import LOST, OK, SENSORS, Tracker
 
 _DEFAULT_VOCAB = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "bow", "vocab_synth.npz",
 )
-_SENSORS_LATER = "ROADMAP.md Queue A item 16"
 
 
 class System:
@@ -48,10 +49,14 @@ class System:
                  trace_path: str | None = None,
                  tune_gc: bool = False,
                  device="cuda"):
-        if sensor != "rgbd":
-            raise NotImplementedError(
-                f"sensor={sensor!r}: only RGB-D is ported (mono and stereo are "
-                f"{_SENSORS_LATER})")
+        if sensor not in SENSORS:
+            raise ValueError(f"sensor={sensor!r}: one of {SENSORS}")
+        if sensor == "mono" and cfg.loop.fix_scale:
+            # monocular scale is unobservable: loop corrections estimate a
+            # full Sim(3) and the essential graph runs 7-dof so that scale
+            # drift can be absorbed (mbFixScale = sensor != MONOCULAR,
+            # LoopClosing.cc:37-43; Optimizer.cc:1135)
+            cfg = cfg.replace(loop=dataclasses.replace(cfg.loop, fix_scale=False))
         if tune_gc:
             # keep CPython's gen-2 collector out of the frame loop; explicit
             # sweeps run at compaction / shutdown instead (utils.gctune).
@@ -79,7 +84,7 @@ class System:
             self.loop_closer = AsyncLoopCloser(self.loop_closer)
         self.tracker = Tracker(cfg, self.map, local_mapper=self.local_mapper,
                                loop_closer=self.loop_closer, voc=self.voc,
-                               kfdb=self.kfdb, tracer=self.tracer)
+                               kfdb=self.kfdb, sensor=sensor, tracer=self.tracer)
         if self.loop_closer is not None:
             self.loop_closer.tracker = self.tracker
         self.cloud = PointCloudMapper(cfg, device=device) if enable_dense_cloud else None
@@ -114,10 +119,15 @@ class System:
         return out
 
     def track_stereo(self, gray_l: np.ndarray, gray_r: np.ndarray, timestamp: float):
-        raise NotImplementedError(f"stereo tracking is {_SENSORS_LATER}")
+        """Track one rectified stereo pair (System::TrackStereo,
+        System.cc:121-174); RuntimeError unless the sensor is stereo."""
+        return self.tracker.process_stereo(gray_l, gray_r, timestamp)
 
     def track_monocular(self, gray: np.ndarray, timestamp: float):
-        raise NotImplementedError(f"monocular tracking is {_SENSORS_LATER}")
+        """Track one monocular frame (System::TrackMonocular,
+        System.cc:236-280); returns (R, t) up to the bootstrap's scale.
+        RuntimeError unless the sensor is mono."""
+        return self.tracker.process_mono(gray, timestamp)
 
     def activate_localization_mode(self):
         """ActivateLocalizationMode (System.cc:129-140): freeze mapping."""

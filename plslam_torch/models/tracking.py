@@ -1,7 +1,8 @@
 """Frontend tracking: the per-frame state machine and its device step.
 
 The reference ``Tracking`` thread (Tracking.cc) as a host-side state
-machine around one device step per frame (``fused_track_step``), RGB-D:
+machine around one device step per frame (``fused_track_step``), for the
+RGB-D, stereo and monocular sensors:
 
 - Frame construction (Frame.cc RGB-D ctor — perception),
 - TrackWithMotionModel (:1212-1330) + UpdateLastFrame temporal landmarks
@@ -15,8 +16,16 @@ bindings) stays on the device; the host copies one small result record per
 frame. Local-map tensors are uploaded only when the keyframe set changes.
 
 Keyframe decision/creation follows NeedNewKeyFrame / CreateNewKeyFrame
-(:1423-1744, RGB-D branch): close-point bookkeeping, depth-sorted new
-landmark creation, line creation from endpoint depths.
+(:1423-1744): close-point bookkeeping, depth-sorted new landmark creation,
+line creation from endpoint depths.
+
+Stereo (``process_stereo``) builds each frame from the pair
+(``frame.build_frame_stereo``: depth from the left-right match, no lines)
+and otherwise tracks as RGB-D. Monocular (``process_mono``) runs the same
+step on an all-zero depth map: the map is bootstrapped from two views
+(``_monocular_initialization``: ``mono_init_match``, the H / F RANSAC of
+ops.initializer, a two-keyframe map scaled to median depth 1) and grows by
+the local mapper's epipolar triangulation.
 
 A local mapper (models.local_mapping, or its worker-thread wrapper in
 models.async_mapping) receives every new keyframe; its lock, when it has
@@ -36,9 +45,7 @@ in models.async_mapping) receives every keyframe after its bag of words;
 the corrections it makes reach this tracker through the gauge-correction
 protocol (``apply_gauge_correction``). With a ``tracer``
 (utils.tracing) every retired frame writes a "frame" record and every
-relocalization a "reloc" record, with the JAX package's fields. The mono
-and stereo sensors are a later part of the port (ROADMAP.md, Queue A) and
-raise ``NotImplementedError`` here.
+relocalization a "reloc" record, with the JAX package's fields.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from ..config import SlamConfig
 from ..geometry import lines as glines
 from ..geometry import projection as gproj
 from ..geometry import se3
+from ..ops import initializer as mono_init_ops
 from ..ops import line_matching, matching
 from ..optim import pose as pose_opt
 from ..utils import tracing
@@ -288,7 +296,10 @@ def fused_track_step(
     has_vel: bool,
     lm_p3d, lm_desc, lm_normal, lm_mind, lm_maxd, lm_valid,
     lml_ep3d, lml_desc, lml_valid,
+    stereo: bool = False,
 ) -> FusedOut:
+    """One tracked frame on the device. ``depth`` is the depth map, or with
+    ``stereo=True`` the quantized RIGHT image."""
     cam = cfg.camera
     dev = lm_p3d.device
     LM = lm_p3d.shape[0]
@@ -299,7 +310,8 @@ def fused_track_step(
     prev_slot_ln = torch.where(
         prev_slot_ln >= 0, ln_remap[prev_slot_ln.long().clamp(0, LL - 1)], neg(prev_slot_ln))
 
-    fd = mframe.build_frame(gray, depth, cfg, quantized=True)
+    fd = (mframe.build_frame_stereo(gray, depth, cfg, quantized=True) if stereo
+          else mframe.build_frame(gray, depth, cfg, quantized=True))
 
     # velocity-model pose guess
     Rg, tg = se3.compose(R_vel, t_vel, R_prev, t_prev) if has_vel else (R_prev, t_prev)
@@ -434,6 +446,16 @@ def _to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
     return out
 
 
+def mono_init_match(cfg: SlamConfig, q_xy, q_desc, q_valid, t_xy, t_desc, t_valid):
+    """SearchForInitialization (ORBmatcher.cc:573-727): a 100 px window,
+    ratio 0.9, TH_LOW, deduped, as one gated search. Returns (idx, ok)."""
+    gate = (matching.window_gate(q_xy, t_xy, torch.full((q_xy.shape[0],), 100.0,
+                                                         device=q_xy.device))
+            & q_valid[:, None] & t_valid[None, :])
+    m = matching.match_descriptors(q_desc, t_desc, gate, TH_LOW, nn_ratio=0.9, dedupe=True)
+    return m.idx, m.ok
+
+
 # ===========================================================================
 # Host-side tracker
 # ===========================================================================
@@ -441,6 +463,7 @@ def _to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
 NOT_INITIALIZED = 0
 OK = 1
 LOST = 2
+SENSORS = ("rgbd", "stereo", "mono")  # System eSensor (System.h:58-66)
 
 
 class Tracker:
@@ -454,14 +477,18 @@ class Tracker:
     def __init__(self, cfg: SlamConfig, slam_map: SlamMap, local_mapper=None,
                  loop_closer=None, voc=None, kfdb=None, sensor: str = "rgbd",
                  tracer=None):
-        if sensor != "rgbd":
-            raise NotImplementedError(
-                f"sensor={sensor!r}: only RGB-D is ported (mono and stereo are "
-                "ROADMAP.md Queue A item 16)")
+        if sensor not in SENSORS:
+            raise ValueError(f"sensor={sensor!r}: one of {SENSORS}")
         self.cfg = cfg
         self.map = slam_map
         self.device = slam_map.device
-        self.sensor = sensor
+        self.sensor = sensor  # System eSensor
+        # the monocular bootstrap's held reference frame (fd, HostFrame,
+        # timestamp); None until one is held and again after a bootstrap
+        self._mono_ref = None
+        # the last bootstrap attempt that reached a reconstruction: its
+        # frame, the H and F scores, and whether the winner was clear
+        self.mono_init_stats: dict | None = None
         self.local_mapper = local_mapper
         # map-update lock (Map::mMutexMapUpdate) of a mapper on a worker
         # thread; a no-op without one
@@ -540,7 +567,8 @@ class Tracker:
     # ------------------------------------------------------------------ API
     def process(self, gray: np.ndarray, depth: np.ndarray, timestamp: float):
         """Track one RGB-D frame (uint8 or float gray; uint16 depth in
-        depth_map_factor units, or float metres).
+        depth_map_factor units, or float metres); for a stereo tracker
+        ``depth`` is the right image (``process_stereo``).
 
         Pipelined lag-1: returns the PREVIOUS frame's (R, t) world-to-camera
         (or None). Call :meth:`flush` to drain the last in-flight frame."""
@@ -551,15 +579,18 @@ class Tracker:
             self._try_reacquire_map()
         gray, depth = self._quantize_inputs(gray, depth)
         gray = torch.from_numpy(gray).to(self.device)
-        depth = torch.from_numpy(depth.astype(np.int32)).to(self.device)
+        if self.sensor != "stereo":
+            depth = depth.astype(np.int32)
+        depth = torch.from_numpy(depth).to(self.device)
         if self.state == NOT_INITIALIZED:
-            fd = mframe.build_frame(gray, depth, self.cfg, quantized=True)
-            if self._stereo_initialization(fd, timestamp):
+            init = (self._monocular_initialization if self.sensor == "mono"
+                    else self._stereo_initialization)
+            if init(self._build_frame(gray, depth), timestamp):
                 self.state = OK
                 return self.last_pose
             return None
         if self.state == LOST:
-            self._prev_fd = mframe.build_frame(gray, depth, self.cfg, quantized=True)
+            self._prev_fd = self._build_frame(gray, depth)
             if self._try_relocalize(timestamp):
                 return self.last_pose
             # reference: reset if lost right after init (Tracking.cc:560-568)
@@ -594,11 +625,29 @@ class Tracker:
         ))
         return result
 
-    def process_mono(self, gray, timestamp):
-        raise NotImplementedError("monocular tracking is ROADMAP.md Queue A item 16")
+    def process_mono(self, gray: np.ndarray, timestamp: float):
+        """Track one monocular frame (System::TrackMonocular ->
+        GrabImageMonocular, Tracking.cc:244-281): the shared step on an
+        all-zero half-res depth map, so no temporal point has depth and
+        landmarks come from the bootstrap and epipolar triangulation."""
+        if self.sensor != "mono":
+            raise RuntimeError(f"process_mono on a {self.sensor} tracker")
+        h, w = self.cfg.camera.height // 2, self.cfg.camera.width // 2
+        return self.process(gray, np.zeros((h, w), np.uint16), timestamp)
 
-    def process_stereo(self, gray_l, gray_r, timestamp):
-        raise NotImplementedError("stereo tracking is ROADMAP.md Queue A item 16")
+    def process_stereo(self, gray_l: np.ndarray, gray_r: np.ndarray, timestamp: float):
+        """Track one rectified stereo pair (System::TrackStereo ->
+        GrabImageStereo, Tracking.cc:170-208)."""
+        if self.sensor != "stereo":
+            raise RuntimeError(f"process_stereo on a {self.sensor} tracker")
+        return self.process(gray_l, gray_r, timestamp)
+
+    def _build_frame(self, gray: torch.Tensor, depth: torch.Tensor) -> FrameData:
+        """This sensor's FrameData of quantized inputs (``depth``: the right
+        image for stereo)."""
+        if self.sensor == "stereo":
+            return mframe.build_frame_stereo(gray, depth, self.cfg, quantized=True)
+        return mframe.build_frame(gray, depth, self.cfg, quantized=True)
 
     def apply_gauge_correction(self, R_delta, t_delta):
         """Publish a rigid gauge delta (T_old^-1 ∘ T_new of a corrected
@@ -658,7 +707,8 @@ class Tracker:
 
     def _dispatch(self, gray, depth) -> FusedOut:
         """Run the fused step and optimistically advance device state."""
-        out = fused_track_step(self.cfg, gray, depth, *self.dispatch_args())
+        out = fused_track_step(self.cfg, gray, depth, *self.dispatch_args(),
+                               stereo=self.sensor == "stereo")
         self._pt_remap = self._id_pt
         self._ln_remap = self._id_ln
         self._pt_remap_np = None
@@ -677,7 +727,8 @@ class Tracker:
         """Reduce the inputs as the JAX package's tracker does — results
         depend on it: ``gray_wire_bits`` gray (top bits) and HALF-RES uint16
         depth (depth_map_factor units, 2x2 min-of-nonzero pool; depth is only
-        sampled at feature coordinates)."""
+        sampled at feature coordinates). A stereo tracker's second input is
+        the right image, reduced as the left one."""
         gray = np.asarray(gray)
         depth = np.asarray(depth)
         if gray.dtype != np.uint8:
@@ -685,6 +736,12 @@ class Tracker:
         gbits = self.cfg.tracking.gray_wire_bits
         if gbits < 8:
             gray = gray >> (8 - gbits)
+        if self.sensor == "stereo":
+            if depth.dtype != np.uint8:
+                depth = np.clip(depth, 0, 255).astype(np.uint8)
+            if gbits < 8:
+                depth = depth >> (8 - gbits)
+            return np.ascontiguousarray(gray), np.ascontiguousarray(depth)
         h, w = depth.shape
         if depth.dtype != np.uint16:
             f = self.cfg.tracking.depth_map_factor
@@ -869,6 +926,100 @@ class Tracker:
         self._t = torch.as_tensor(t, device=self.device)
         self._has_vel = False
         self._refresh_local_map(pt_ids, ln_ids)
+        return True
+
+    def _monocular_initialization(self, fd: FrameData, timestamp: float) -> bool:
+        """MonocularInitialization + CreateInitialMapMonocular
+        (Tracking.cc:729-903): hold a reference frame, match wide, RANSAC H
+        and F, pick by the score ratio, reconstruct, and build the
+        two-keyframe map scaled to median depth 1. The RANSAC draws come
+        from a generator seeded with the frame id."""
+        host = HostFrame(fd)
+        if int(host.kp_valid.sum()) <= 100:
+            self._mono_ref = None
+            return False
+        if self._mono_ref is None:
+            self._mono_ref = (fd, host, timestamp)
+            return False
+        rfd, rhost, rts = self._mono_ref
+        idx_d, ok_d = mono_init_match(self.cfg, rfd.kp_xy_un, rfd.kp_desc, rfd.kp_valid,
+                                      fd.kp_xy_un, fd.kp_desc, fd.kp_valid)
+        idx, ok = _to_host([idx_d, ok_d])
+        if int(ok.sum()) < 100:  # Tracking.cc:774-780: drop the reference frame
+            self._mono_ref = (fd, host, timestamp)
+            return False
+        uv1 = rfd.kp_xy_un
+        uv2 = fd.kp_xy_un[idx_d.long().clamp(0, fd.kp_xy_un.shape[0] - 1)]
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.frame_id)
+        H, sh, F, sf, okh, okf = mono_init_ops.find_models(uv1, uv2, ok_d, generator=gen)
+        sh_f, sf_f = float(sh), float(sf)
+        K = torch.as_tensor(self.cfg.camera.K, device=self.device)
+        if sh_f / max(sh_f + sf_f, 1e-9) > 0.40:  # Initializer.cc:129-136
+            rec = mono_init_ops.reconstruct_h(H, K, uv1, uv2, okh)
+        else:
+            rec = mono_init_ops.reconstruct_f(F, K, uv1, uv2, okf)
+        R, t, pw, good, clear = _to_host(list(rec))
+        self.mono_init_stats = dict(frame=self.frame_id, score_h=sh_f, score_f=sf_f,
+                                    clear=bool(clear))
+        if not bool(clear):
+            return False
+        good = good & ok
+        if good.sum() < 80:
+            return False
+        # scale: median depth -> 1 (CreateInitialMapMonocular :860-880)
+        med = float(np.median(pw[good][:, 2]))
+        if med <= 0:
+            return False
+        R = np.array(R)
+        t = (t / med).astype(np.float32)
+        pw = (pw / med).astype(np.float32)
+
+        m = self.map
+        cfg = self.cfg
+        I = np.eye(3, dtype=np.float32)  # noqa: E741
+        z3 = np.zeros(3, np.float32)
+        with self._map_lock:
+            kf0 = m.add_keyframe(rhost, I, z3, self.frame_id - 1, rts, fd_dev=rfd)
+            kf1 = m.add_keyframe(host, R, t, self.frame_id, timestamp, fd_dev=fd)
+            cur_pt_ids = np.full(cfg.orb.max_keypoints, -1, np.int32)
+            new_feats, new_pids = [], []
+            c1 = np.zeros(3)
+            for f in np.nonzero(good)[0]:
+                p = pw[f]
+                dist = float(np.linalg.norm(p - c1))
+                max_d = dist * cfg.orb.scale_factor ** int(rhost.kp_octave[f])
+                min_d = max_d / cfg.orb.scale_factor ** (cfg.orb.n_levels - 1)
+                normal = (p - c1) / max(dist, 1e-6)
+                pid = m.add_point(p, None, normal, min_d, max_d, kf0)
+                f2 = int(idx[f])
+                m.add_point_obs(pid, kf0, int(f))
+                m.add_point_obs(pid, kf1, f2)
+                cur_pt_ids[f2] = pid
+                new_feats.append(int(f))
+                new_pids.append(pid)
+            new_pids = np.array(new_pids, np.int32)
+            m.scatter_point_descs_from(rfd.kp_desc, np.array(new_feats, np.int32), new_pids)
+            self.last_kf_id = self.frame_id
+            self.last_kf = kf1
+            self.ref_kf = kf1
+            self.last_pose = (R, t)
+            self.last_pt_ids = cur_pt_ids
+            self.last_ln_ids = np.full(cfg.lines.max_lines, -1, np.int32)
+            self._record_pose(rts, I, z3, ref=kf0)
+            self._record_pose(timestamp, R, t, ref=kf1)
+            if self.local_mapper is not None:
+                self.local_mapper.on_new_landmarks(kf1, new_pids, np.zeros(0, np.int32))
+                self.local_mapper.process_keyframe(kf1)
+            self._register_bow(kf0, rfd)
+            self._register_bow(kf1, fd)
+            self._mono_ref = None
+            # device state
+            self._prev_fd = fd
+            self._R = torch.as_tensor(R, device=self.device)
+            self._t = torch.as_tensor(t, device=self.device)
+            self._has_vel = False
+            self._refresh_local_map(cur_pt_ids, self.last_ln_ids)
         return True
 
     # ------------------------------------------------------------- tracking
@@ -1113,14 +1264,16 @@ class Tracker:
     # -------------------------------------------------------- keyframe logic
     def _need_new_keyframe(self, tracked_close, creatable_close, n_inliers,
                            frame_id: int | None = None):
-        """NeedNewKeyFrame RGB-D branch (Tracking.cc:1423-1557); never in
-        localization-only mode."""
+        """NeedNewKeyFrame (Tracking.cc:1423-1557); never in
+        localization-only mode. Monocular: no close points to mint, so no
+        need_close and no c1c, and the 0.9 reference ratio (:1504-1509)."""
         if self.only_tracking:
             return False
         if frame_id is None:
             frame_id = self.frame_id
         cfg = self.cfg.tracking
-        need_close = (tracked_close < 100) and (creatable_close > 70)
+        mono = self.sensor == "mono"
+        need_close = (not mono) and (tracked_close < 100) and (creatable_close > 70)
         min_obs = 2 if self.map.n_kf <= 2 else 3
         ref_tracked = 1
         ref = self.ref_kf
@@ -1135,8 +1288,9 @@ class Tracker:
             ref_tracked = max(cnt if cnt > 0 else len(pids), 1)
         c1a = frame_id >= self.last_kf_id + cfg.max_frames_between_kf
         c1b = frame_id >= self.last_kf_id + max(cfg.min_frames_between_kf, 1)
-        c1c = (n_inliers < ref_tracked * 0.25) or need_close
-        c2 = ((n_inliers < ref_tracked * 0.75) or need_close) and n_inliers > 15
+        c1c = (not mono) and ((n_inliers < ref_tracked * 0.25) or need_close)
+        th_ref = 0.9 if mono else 0.75
+        c2 = ((n_inliers < ref_tracked * th_ref) or need_close) and n_inliers > 15
         return bool((c1a or c1b or c1c) and c2)
 
     def _create_new_keyframe(self, fd: FrameData, R, t, cur_pt_ids,

@@ -105,8 +105,18 @@ def port_parts(jax_severed):
 
 
 def _jax_copy(jm):
-    """A JAX map whose host arrays and observation dicts are copies."""
+    """A JAX map whose host arrays and observation dicts are copies.
+
+    The source's descriptor rows staged on the host are flushed into its
+    device arenas first, and the copy gets dirty-row lists of its own: a
+    shallow copy would share them, so the first arena read of any copy (or
+    ``map_arrays`` of the source) would flush the shared list into that map
+    alone and leave every later copy with a stale arena."""
+    jm.point_desc_arena()
+    jm.line_desc_arena()
     c = copy.copy(jm)
+    c._pt_desc_dirty = []
+    c._ln_desc_dirty = []
     for name in convert._ARRAYS:
         setattr(c, name, np.array(getattr(jm, name)))
     c.pt_obs = [dict(o) for o in jm.pt_obs]

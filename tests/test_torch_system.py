@@ -12,7 +12,8 @@ closing on, tracing on):
 
 and, port-only: localization mode does not grow the map, the viewer draws
 the map and the status bar, a save -> load -> relocalize round trip, and
-the mono / stereo entry points name ROADMAP item 16.
+the sensors (ROADMAP item 16): a monocular System turns ``fix_scale`` off,
+and an RGB-D System's stereo and monocular entry points raise.
 """
 
 import copy
@@ -211,9 +212,10 @@ def test_localization_mode_does_not_grow_the_map(systems, frames):
 
 def test_mono_and_stereo_name_item_16(systems):
     _, slam, _ = systems
-    with pytest.raises(NotImplementedError, match="item 16"):
-        System(slam.cfg, sensor="mono", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    mono = System(slam.cfg, sensor="mono", device="cpu")
+    assert mono.tracker.sensor == "mono" and mono.cfg.loop.fix_scale is False
+    assert slam.cfg.loop.fix_scale is True
+    with pytest.raises(RuntimeError, match="stereo"):
         slam.track_stereo(None, None, 0.0)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(RuntimeError, match="mono"):
         slam.track_monocular(None, 0.0)

@@ -200,12 +200,16 @@ def test_to_host_roundtrip():
 def test_unported_paths_raise():
     cfg = convert.config_from_dict(dataclasses.asdict(JSlamConfig(camera=JCamera(**KW))))
     m = SlamMap(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ttracking.Tracker(cfg, m, sensor="mono")
+    with pytest.raises(ValueError):
+        ttracking.Tracker(cfg, m, sensor="depth")
+    assert ttracking.Tracker(cfg, m, sensor="mono").sensor == "mono"
     tr = ttracking.Tracker(cfg, m)
     assert tr._try_relocalize(0.0) is False  # no vocabulary / database
-    with pytest.raises(NotImplementedError):
+    # an RGB-D tracker takes no stereo pair and no monocular frame
+    with pytest.raises(RuntimeError):
         tr.process_stereo(None, None, 0.0)
+    with pytest.raises(RuntimeError):
+        tr.process_mono(None, 0.0)
     # a vocabulary and a keyframe database are accepted (relocalization)
     voc = Vocabulary.load(device="cpu")
     kfdb = KeyFrameDatabase(voc, max_kf=cfg.capacity.max_keyframes)
