@@ -89,9 +89,26 @@ Phases, one line each:
                localization-only System, which starts LOST, relocalizes
                within 5 cm and mints no keyframe. Wall time of each, fps of
                (a).
+  9. multiseq — batched multi-sequence tracking (plslam_torch.parallel.
+               multiseq): 4 sequences of the room (RoomScene(0..3), 40
+               frames, each tracker with its own map, synchronous mapper
+               and keyframe database) through one MultiTracker, and the
+               same 4 run solo; sequence 1 gets a wrong velocity prior (the
+               rescue runs on a sub-batch), sequence 3 two blackout frames
+               (it leaves the batch, steps solo, relocalizes). Sequences
+               0-2 OK with 40 rows and ATE < 3 cm, every sequence's states
+               equal its solo tracker's and its camera centres within 1 mm,
+               1 FAST and 3 Hamming launches a batched step (4 with the
+               rescue); sequence-frames per second batched and solo. Then 2
+               stereo sequences of 10 pairs, batched against solo, and both
+               kernels on the inputs the phase recorded (FAST over 4 x 8
+               levels in one launch, Hamming with a query set per
+               sequence), exact against their plain versions, timed.
+               `python3 chip_smoke.py --only multiseq` runs the build and
+               this phase alone.
 Then a JSON line of per-kernel numbers (launches: the mapping phase,
-which is bench.py's path; the main, stereo, mono, reloc, loop and system
-phases' beside them), the
+which is bench.py's path; the main, stereo, mono, reloc, loop, system and
+multiseq phases' beside them), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -1465,9 +1482,9 @@ def hold_and_time(label, fn_name, q, t, gate):
     hamming.dense_tiles()
     t_p, d_p = timings(lambda: plain(q, t, gate))
     t_l, d_l = matmul_yardstick(q, t)
-    b, by = bound(gate.numel() + 32 * n + 32 * batch * m_ + 12 * batch * n,
+    b, by = bound(gate.numel() + q.numel() + t.numel() + 12 * batch * n,
                   HAMMING_OPS_PER_PAIR * nnz, INT8_TC_OPS_S)
-    shape = f"{batch} x {n}x{m_}" if fn_name.endswith("batched") else f"{n}x{m_}"
+    shape = f"{batch} x {n}x{m_}" if gate.dim() == 3 else f"{n}x{m_}"
     log(f"  {fn_name} {label} {shape}: gated {nnz} pairs, {tiles} of "
         f"{batch * -(-n // 16) * -(-m_ // 512)} tiles on the tensor cores; kernel "
         f"{t_k:.4f} ms (device {d_k:.4f}), plain {t_p:.4f} ms (device {d_p:.4f}), matmul on "
@@ -1853,15 +1870,363 @@ def check_sensor_shapes(stereo_inputs, stereo_res, mono_inputs, mono_res):
     return out
 
 
-def render(cfg, seed, poses):
-    """uint8 gray and uint16 depth frames of RoomScene(seed) at ``poses``."""
+MS_B = 4                 # sequences tracked together (tests/test_multiseq.py's room)
+MS_FRAMES = 40           # smooth_trajectory(80)[:40]
+MS_RESCUE = (1, 12)      # (sequence, frame): a wrong velocity prior before that frame
+MS_BLACKOUT = (3, (20, 21))  # (sequence, frames): uniform gray, no depth
+MS_ATE_M = 0.03          # tests/test_multiseq.py's bar
+MS_CENTRE_M = 0.001      # each sequence against its solo tracker
+MS_STEREO = (2, 10)      # stereo sub-phase: sequences, pairs
+
+
+class MultiseqProbe:
+    """While active: per call of ``multiseq.batched_step`` the number of
+    sequences and the FAST and Hamming launches made inside it, the batch
+    sizes of the rescue stage, and the first batched FAST and per-problem
+    local-map Hamming inputs (read from the wrappers' own counts)."""
+
+    def __init__(self, n_seq):
+        self.n_seq = n_seq
+        self.steps = []      # (sequences, fast launches, hamming launches, rescue calls)
+        self.rescue_batches = []
+        self.inputs = {}
+        self._saved = []
+
+    def __enter__(self):
+        from plslam_torch.models import tracking
+        from plslam_torch.ops import fast, hamming, matching, orb
+        from plslam_torch.parallel import multiseq
+
+        probe = self
+        step, rescue_core = multiseq.batched_step, tracking._rescue_core
+        levels_fn, ham_fn = fast.fast_score_nms_levels, hamming.hamming_top2
+
+        def counted_step(cfg, gray, depth, args, stereo=False):
+            f0, h0, r0 = fast.fast_score_nms.launches, hamming.hamming_top2.launches, \
+                len(probe.rescue_batches)
+            out = step(cfg, gray, depth, args, stereo=stereo)
+            probe.steps.append((gray.shape[0], fast.fast_score_nms.launches - f0,
+                                hamming.hamming_top2.launches - h0,
+                                len(probe.rescue_batches) - r0))
+            return out
+
+        def rescue(cfg, fd, *a):
+            probe.rescue_batches.append(tuple(fd.kp_valid.shape[:-1]))
+            return rescue_core(cfg, fd, *a)
+
+        def levels(lv, th):
+            if lv[0].dim() == 3 and lv[0].shape[0] == probe.n_seq:
+                probe.inputs.setdefault("fast", ([x.clone() for x in lv], th))
+            return levels_fn(lv, th)
+
+        def ham(q, t, gate):
+            if q.dim() == 3 and q.shape[0] == probe.n_seq and q.shape[1] >= 8192:
+                probe.inputs.setdefault("hamming", (q.clone(), t.clone(), gate.clone()))
+            return ham_fn(q, t, gate)
+
+        class Proxy:
+            hamming_top2 = staticmethod(ham)
+
+            def __getattr__(self, name):
+                return getattr(hamming, name)
+
+        class FastProxy:
+            fast_score_nms_levels = staticmethod(levels)
+
+            def __getattr__(self, name):
+                return getattr(fast, name)
+
+        self._saved = [(multiseq, "batched_step", step), (tracking, "_rescue_core", rescue_core),
+                       (matching, "hamming", hamming), (orb, "fast", fast)]
+        multiseq.batched_step = counted_step
+        tracking._rescue_core = rescue
+        matching.hamming = Proxy()
+        orb.fast = FastProxy()
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _ms_trackers(cfg, dev, n, voc=None, sensor="rgbd"):
+    """n trackers, each with its own map and synchronous LocalMapper (and,
+    with a vocabulary, its own keyframe database)."""
+    from plslam_torch.bow.database import KeyFrameDatabase
+    from plslam_torch.models.local_mapping import LocalMapper
+    from plslam_torch.models.map import SlamMap
+    from plslam_torch.models.tracking import Tracker
+
+    out = []
+    for _ in range(n):
+        m = SlamMap(cfg, device=dev)
+        kfdb = None if voc is None else KeyFrameDatabase(voc, max_kf=cfg.capacity.max_keyframes)
+        out.append(Tracker(cfg, m, local_mapper=LocalMapper(cfg, m, kfdb=kfdb), voc=voc,
+                           kfdb=kfdb, sensor=sensor))
+    return out
+
+
+def _ms_wrong_prior(tracker, dev):
+    import torch
+
+    c, s = np.cos(np.radians(20.0)), np.sin(np.radians(20.0))
+    tracker._R_vel = torch.tensor([[c, 0, s], [0, 1, 0], [-s, 0, c]], dtype=torch.float32,
+                                  device=dev)
+    tracker._t_vel = torch.tensor([0.4, 0.0, 0.0], device=dev)
+
+
+def _ms_run(trackers, seqs, dev, batched, rescue=None):
+    """Every sequence's frames through its tracker, solo (one after the
+    other) or through one MultiTracker; ``rescue`` = (sequence, frame) gets
+    a wrong velocity prior. Returns the per-frame states and rescue inliers
+    (of the frame each call retired), the wall seconds (ending in a device
+    sync) and the MultiTracker."""
+    import torch
+
+    from plslam_torch.parallel.multiseq import MultiTracker
+
+    n = len(seqs[0])
+    states = [[] for _ in seqs]
+    rescued = [[] for _ in seqs]
+    debug = [[] for _ in seqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mt = None
+    if batched:
+        mt = MultiTracker(trackers)
+        for i in range(n):
+            if rescue is not None and i == rescue[1]:
+                _ms_wrong_prior(trackers[rescue[0]], dev)
+            mt.process([q[i] for q in seqs], [i / 30.0] * len(seqs))
+            for s, tr in enumerate(trackers):
+                states[s].append(tr.state)
+                rescued[s].append(tr.debug.get("rescue_inliers", 0))
+                debug[s].append(dict(tr.debug, n_kf=tr.map.n_kf))
+        mt.flush()
+    else:
+        for s, (tr, frames) in enumerate(zip(trackers, seqs)):
+            for i, (g, d) in enumerate(frames):
+                if rescue is not None and (s, i) == rescue:
+                    _ms_wrong_prior(tr, dev)
+                tr.process(g, d, i / 30.0)
+                states[s].append(tr.state)
+                rescued[s].append(tr.debug.get("rescue_inliers", 0))
+                debug[s].append(dict(tr.debug, n_kf=tr.map.n_kf))
+            tr.flush()
+    torch.cuda.synchronize()
+    return (states, rescued, debug), time.perf_counter() - t0, mt
+
+
+def _ms_compare(solo, batched, log_solo, log_batched):
+    """Per sequence: states and rescue inliers equal frame by frame, the
+    same trajectory rows, camera centres within MS_CENTRE_M of the solo
+    tracker's."""
+    out, bad = [], []
+    for s, (a, b) in enumerate(zip(solo, batched)):
+        for k, what in enumerate(("states", "rescue inliers")):
+            require(log_solo[k][s] == log_batched[k][s],
+                    f"sequence {s}: {what} {log_batched[k][s]} batched, {log_solo[k][s]} solo")
+        require([x[0] for x in a.trajectory] == [x[0] for x in b.trajectory],
+                f"sequence {s}: {len(b.trajectory)} rows batched, {len(a.trajectory)} solo")
+        d = [float(np.linalg.norm(-(Ra.T @ ta) + Rb.T @ tb))
+             for (_, Ra, ta), (_, Rb, tb) in zip(a.trajectory, b.trajectory)]
+        dc = max(d, default=0.0)
+        if dc >= MS_CENTRE_M:
+            first = next(i for i, x in enumerate(d) if x > 0)
+            bad.append(f"sequence {s}: camera centres {dc * 100:.4f} cm from solo, first "
+                       f"apart at row {first}; cm by row "
+                       + " ".join(f"{x * 100:.3g}" for x in d)
+                       + "; solo, batched at the rows around: "
+                       + str([(log_solo[2][s][i], log_batched[2][s][i])
+                              for i in range(max(first - 1, 0), min(first + 2, len(d)))]))
+        out.append(dc)
+    require(not bad, "\n".join(bad))
+    return out
+
+
+def multiseq_phase(cfg, dev):
+    """B = 4 sequences (RoomScene(0..3) on smooth_trajectory(80)[:40], each
+    tracker with its own map, synchronous LocalMapper and keyframe database)
+    through one MultiTracker, against the same four run solo; sequence 1
+    gets a wrong velocity prior at frame 12 (the rescue runs on a sub-batch),
+    sequence 3 two blackout frames at 20-21 (it leaves the batch, steps solo,
+    relocalizes or not). Then B = 2 stereo sequences (the first 10 pairs of
+    tests/test_stereo.py's scenario on RoomScene(0) and (1)) against solo.
+    Counts set to 0 just before the batched run, read just after it."""
+    from plslam_torch.bow.vocabulary import Vocabulary
+    from plslam_torch.models.tracking import OK
+    from plslam_torch.utils import tum_io
+    from plslam_torch.utils.synthetic import smooth_trajectory
+
+    poses = smooth_trajectory(2 * MS_FRAMES)[:MS_FRAMES]
+    f = cfg.tracking.depth_map_factor
+    frames = render_jobs([(s, cfg.camera, R, t, f) for s in range(MS_B) for R, t in poses])
+    seqs = [frames[s * MS_FRAMES:(s + 1) * MS_FRAMES] for s in range(MS_B)]
+    bs, bframes = MS_BLACKOUT
+    for i in bframes:
+        g, d = seqs[bs][i]
+        seqs[bs][i] = (np.full_like(g, 128), np.zeros_like(d))
+    voc = Vocabulary.load(device=dev)
+    solo = _ms_trackers(cfg, dev, MS_B, voc)
+    st_solo, wall_solo, _ = _ms_run(solo, seqs, dev, False, MS_RESCUE)
+    batched = _ms_trackers(cfg, dev, MS_B, voc)
+    _reset_counts()
+    with MultiseqProbe(MS_B) as probe:
+        st_b, wall_b, mt = _ms_run(batched, seqs, dev, True, MS_RESCUE)
+    launches = _launches()
+    centres = _ms_compare(solo, batched, st_solo, st_b)
+    gt = np.array([-(R.T @ t) for R, t in poses])
+    ates = []
+    for s, tr in enumerate(batched):
+        if s == bs:
+            continue
+        rows = len(tr.trajectory)
+        require(tr.state == OK and rows == MS_FRAMES and tr.map.n_kf >= 1,
+                f"sequence {s}: state {tr.state}, {rows} rows, {tr.map.n_kf} keyframes")
+        ts = np.array([x for x, _, _ in tr.trajectory])
+        est = np.array([-(R.T @ t) for _, R, t in tr.trajectory])
+        ate_m = tum_io.ate_rmse(ts, est, np.arange(MS_FRAMES) / 30.0, gt)
+        require(ate_m < MS_ATE_M, f"sequence {s}: ATE {ate_m:.4f} m")
+        ates.append(ate_m * 100)
+    steps = probe.steps
+    require(steps and all(f == 1 for _, f, _, _ in steps),
+            f"FAST launches per batched step {[f for _, f, _, _ in steps]}")
+    require(all(h == 3 + r for _, _, h, r in steps),
+            f"Hamming launches per batched step {[(h, r) for _, _, h, r in steps]}")
+    # the rescue runs on a sub-batch of one: sequence 1's wrong prior, and
+    # sequence 3's two blackout frames, dispatched while it is still OK
+    require(probe.rescue_batches == [(1,)] * 3,
+            f"rescue batches {probe.rescue_batches}: not three sub-batches of one sequence")
+    rs, ri = MS_RESCUE
+    require(st_b[1][rs][ri + 1] > 100, f"sequence {rs}'s rescue did not carry frame {ri}: "
+            f"{st_b[1][rs][ri + 1]} inliers")
+    require("fast" in probe.inputs and "hamming" in probe.inputs,
+            f"no batched kernel input recorded: {sorted(probe.inputs)}")
+    lost = [i for i, x in enumerate(st_b[0][bs]) if x != OK]
+    relocalized = bool(lost) and st_b[0][bs][-1] == OK
+    seq_frames = MS_B * MS_FRAMES
+    res = dict(
+        sequences=MS_B, frames=MS_FRAMES, batched_steps=len(steps),
+        batch_sizes=sorted({b for b, _, _, _ in steps}),
+        fast_launches_per_step=sorted({f for _, f, _, _ in steps}),
+        hamming_launches_per_step=sorted({h for _, _, h, _ in steps}),
+        rescued_steps=sum(1 for *_, r in steps if r), launches=launches,
+        seq_frames_per_s_batched=seq_frames / wall_b, seq_frames_per_s_solo=seq_frames / wall_solo,
+        speedup=wall_solo / wall_b, wall_batched_s=wall_b, wall_solo_s=wall_solo,
+        ate_rmse_cm=ates, centre_diff_to_solo_cm=[c * 100 for c in centres],
+        keyframes=[tr.map.n_kf for tr in batched],
+        seq3_lost_frames=lost, seq3_relocalized=relocalized,
+        seq3_rows=len(batched[bs].trajectory))
+    del solo, batched, mt
+
+    # stereo: B = 2 sequences of pairs, batched against solo
+    nb, npairs = MS_STEREO
+    cam = cfg.camera
+    base = np.array([cam.bf / cam.fx, 0, 0], np.float32)
+    grays = render_jobs([(s, cam, R, t - shift, None) for s in range(nb)
+                         for R, t in smooth_trajectory(50)[:npairs] for shift in (0, base)])
+    spairs = [[(grays[2 * (s * npairs + i)], grays[2 * (s * npairs + i) + 1])
+               for i in range(npairs)] for s in range(nb)]
+    solo = _ms_trackers(cfg, dev, nb, sensor="stereo")
+    st_solo, _, _ = _ms_run(solo, spairs, dev, False)
+    batched = _ms_trackers(cfg, dev, nb, sensor="stereo")
+    with MultiseqProbe(nb) as sprobe:
+        st_b, _, _ = _ms_run(batched, spairs, dev, True)
+    scentres = _ms_compare(solo, batched, st_solo, st_b)
+    require(all(tr.state == OK for tr in batched), "a stereo sequence is not tracking")
+    # a stereo step extracts ORB from both images (two FAST launches) and
+    # matches left to right (one more Hamming launch)
+    require(sprobe.steps and all(f == 2 and h == 4 + r for _, f, h, r in sprobe.steps),
+            f"stereo launches per batched step {sprobe.steps}")
+    res["stereo"] = dict(sequences=nb, pairs=npairs, batched_steps=len(sprobe.steps),
+                         centre_diff_to_solo_cm=[c * 100 for c in scentres],
+                         keyframes=[tr.map.n_kf for tr in batched])
+    return res, probe.inputs
+
+
+def check_multiseq_kernels(inputs, n_seq):
+    """Both kernels on the inputs phase multiseq recorded: FAST over the B
+    images' 8 pyramid levels in one launch, and the per-problem local-map
+    Hamming launch (B x 8192 x 1024, one query set per sequence); each
+    exactly equal to its plain version, timed beside its bound."""
+    import torch
+
+    from plslam_torch.ops import fast
+
+    levels, th = inputs["fast"]
+    before = fast.fast_score_nms.launches
+    got = fast.fast_score_nms_levels(levels, th)
+    require(fast.fast_score_nms.launches == before + 1,
+            f"{n_seq} x 8 levels took {fast.fast_score_nms.launches - before} launches")
+    for lvl, g in zip(levels, got):
+        want = fast.fast_score_nms_plain(lvl, th)
+        torch.cuda.synchronize()
+        if not torch.equal(g, want):
+            raise AssertionError(f"batched fast_score_nms differs at {tuple(lvl.shape)}: "
+                                 f"{(g != want).sum().item()} pixels")
+    npx = sum(x.numel() for x in levels)
+    nsides = sum(pretest_sides(x[b], th) for x in levels for b in range(x.shape[0]))
+    t_k, d_k = timings(lambda: fast.fast_score_nms_levels(levels, th))
+    t_p, d_p = timings(lambda: [fast.fast_score_nms_plain(x, th) for x in levels])
+    b, by = fast_bound(npx, nsides)
+    log(f"  fast_score_nms_levels, {n_seq} images x 8 levels in one launch ({npx} px, "
+        f"{nsides} sides pass the pre-test): kernel {t_k:.4f} ms (device {d_k:.4f}), plain "
+        f"{t_p:.4f} ms (device {d_p:.4f}), bound {b * 1e3:.3f} us ({by})")
+    fast_rec = dict(shape=f"{n_seq} x 8 pyramid levels in one launch", max_abs_err=0.0,
+                    ms=t_k, device_ms=d_k, plain_ms=t_p, plain_device_ms=d_p, library_ms=None,
+                    bound_ms=b, bound_by=by, pixels=npx, pretest_sides=nsides)
+    ham_rec = hold_and_time("multiseq local map, per-problem queries", "hamming_top2",
+                            *inputs["hamming"])
+    return fast_rec, ham_rec
+
+
+_SCENES = {}  # RoomScene by seed, in a render worker
+
+
+def _render_job(job):
+    """One frame of a render worker: (seed, camera, R, t, depth factor) ->
+    uint8 gray and uint16 depth, or the gray alone without a factor."""
     from plslam_torch.utils.synthetic import RoomScene
 
-    scene = RoomScene(seed)
-    return [_render(scene, cfg.camera, p, cfg.tracking.depth_map_factor) for p in poses]
+    seed, cam, R, t, f = job
+    if seed not in _SCENES:
+        _SCENES[seed] = RoomScene(seed)
+    gray, depth = _SCENES[seed].render(cam, R, t)
+    gray = np.clip(gray, 0, 255).astype(np.uint8)
+    return gray if f is None else (gray, np.clip(depth * f, 0, 65535).astype(np.uint16))
 
 
-def main() -> int:
+def render_jobs(jobs):
+    """``_render_job`` of every job, on the host's cores (numpy rendering, no
+    card: a pool of spawned processes, closed on return)."""
+    import multiprocessing
+    import os
+
+    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        return pool.map(_render_job, jobs, chunksize=4)
+
+
+def render(cfg, seed, poses):
+    """uint8 gray and uint16 depth frames of RoomScene(seed) at ``poses``."""
+    f = cfg.tracking.depth_map_factor
+    return render_jobs([(seed, cfg.camera, R, t, f) for R, t in poses])
+
+
+def multiseq_and_kernels(cfg, dev, kernels):
+    """Phase multiseq, then both kernels on the inputs it recorded; their
+    records join the kernels' entries."""
+    msres, ms_inputs = multiseq_phase(cfg, dev)
+    log("phase multiseq: ok, " + json.dumps(msres))
+    fast_rec, ham_rec = check_multiseq_kernels(ms_inputs, MS_B)
+    log("phase kernels (multiseq shapes): ok, batched FAST and per-problem Hamming exactly "
+        "equal to their plain versions")
+    for k, (name, rec) in enumerate((("fast_score_nms", fast_rec), ("hamming_top2", ham_rec))):
+        kernels[k]["launches_multiseq_phase"] = msres["launches"][name]
+        kernels[k]["multiseq_shape"] = rec
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1879,6 +2244,14 @@ def main() -> int:
 
     t = cuda_build.build(verbose=True)
     log(f"phase build: ok, {t:.1f} s for {len(cuda_build.KERNELS)} kernels")
+    if argv[1:] == ["--only", "multiseq"]:  # a quick check of the one phase
+        kernels = [{}, {}]
+        multiseq_and_kernels(cfg, dev, kernels)
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return 0
+    if argv[1:]:
+        print(f"chip_smoke: unknown arguments {argv[1:]}", file=sys.stderr)
+        return 2
 
     t0 = time.perf_counter()
     poses = smooth_trajectory(2 * N_FRAMES)[:N_FRAMES]
@@ -1937,6 +2310,7 @@ def main() -> int:
     log("phase system: ok, " + json.dumps(sres))
     for k, name in enumerate(("fast_score_nms", "hamming_top2")):
         kernels[k]["launches_system_phase"] = sres["launches"][name]
+    multiseq_and_kernels(cfg, dev, kernels)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1950,4 +2324,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

@@ -1,5 +1,5 @@
-// FAST-9 corner score + 3x3 non-max suppression for a whole image pyramid
-// in one launch.
+// FAST-9 corner score + 3x3 non-max suppression for a whole image pyramid,
+// of one image or of a batch of images, in one launch.
 //
 // Replaces the JAX package's Pallas kernel ops/pallas_fast.py::fast_score_nms
 // (body `_kernel`, pallas_call at :120), which computes
@@ -31,9 +31,15 @@
 //
 // Design:
 // - One launch for up to MAX_LEVELS levels. The level table (input, output,
-//   H, W, tiles per row, first block) is a kernel parameter; each block finds
-//   its level by an unrolled scan of the table, so no level pays a launch of
-//   its own and the small levels share the card with the large one.
+//   H, W, image stride, tiles per row, first block) is a kernel parameter;
+//   each block finds its level by an unrolled scan of the table, so no level
+//   pays a launch of its own and the small levels share the card with the
+//   large one.
+// - A batch of images (B sequences tracked in one step) shares one pyramid
+//   geometry: level l of image b lies at a fixed stride from level l of
+//   image 0. blockIdx.y is the image, so the scan of the table does not grow
+//   with B, and block (x, y) does exactly what block x of a single image
+//   does: a single image is the B = 1 case of the same kernel.
 // - A 62x16 output tile per 256-thread block: the image tile plus a 4-px
 //   halo (3 px for the circle, 1 px for NMS) is staged in shared memory once
 //   (1.69 loads per output pixel; rows by warp, every load issued before the
@@ -59,10 +65,11 @@
 
 // One pyramid level as the host passes it.
 struct FastLevel {
-  const float* img;
+  const float* img;    // image 0 of the batch
   float* out;
   int h;
   int w;
+  long long stride;    // elements from one image of the batch to the next
 };
 
 namespace {
@@ -81,6 +88,7 @@ constexpr int NT = WARPS * 32;
 struct LevelDesc {
   const float* img;
   float* out;
+  long long stride;
   int h, w, tiles_x, first_block;
 };
 
@@ -150,6 +158,7 @@ fast_score_nms_kernel(const LevelTable tab, float min_th) {
   const int bid = blockIdx.x;
   const float* img = tab.lv[0].img;
   float* out = tab.lv[0].out;
+  long long stride = tab.lv[0].stride;
   int h = tab.lv[0].h, w = tab.lv[0].w, tiles_x = tab.lv[0].tiles_x;
   int first = 0;
 #pragma unroll
@@ -157,12 +166,16 @@ fast_score_nms_kernel(const LevelTable tab, float min_th) {
     if (bid >= tab.lv[i].first_block) {
       img = tab.lv[i].img;
       out = tab.lv[i].out;
+      stride = tab.lv[i].stride;
       h = tab.lv[i].h;
       w = tab.lv[i].w;
       tiles_x = tab.lv[i].tiles_x;
       first = tab.lv[i].first_block;
     }
   }
+  // image blockIdx.y of the batch
+  img += (size_t)blockIdx.y * stride;
+  out += (size_t)blockIdx.y * stride;
   const int tb = bid - first;
   const int ty = tb / tiles_x;
   const int x0 = (tb - ty * tiles_x) * TILE_W;
@@ -279,24 +292,28 @@ fast_score_nms_kernel(const LevelTable tab, float min_th) {
 
 }  // namespace
 
-// Scores every level of `levels` (1..MAX_LEVELS entries, each a contiguous
-// (h, w) float32 image and an output of the same shape) in one launch.
-extern "C" int fast_score_nms_launch(const FastLevel* levels, int n_levels,
+// Scores every level of `levels` (1..MAX_LEVELS entries) of each of the
+// n_images images in one launch: level l of image b is the contiguous (h, w)
+// float32 image at levels[l].img + b * levels[l].stride, its output at the
+// same offset from levels[l].out.
+extern "C" int fast_score_nms_launch(const FastLevel* levels, int n_levels, int n_images,
                                      float min_th, cudaStream_t stream) {
   if (n_levels < 1 || n_levels > MAX_LEVELS) return cudaErrorInvalidValue;
+  if (n_images < 1 || n_images > 65535) return cudaErrorInvalidValue;
   LevelTable tab;
   int blocks = 0;
   for (int i = 0; i < MAX_LEVELS; ++i) {
     if (i < n_levels) {
       const FastLevel& l = levels[i];
-      if (l.h < 1 || l.w < 1) return cudaErrorInvalidValue;
+      if (l.h < 1 || l.w < 1 || (n_images > 1 && l.stride < (long long)l.h * l.w))
+        return cudaErrorInvalidValue;
       const int tx = (l.w + TILE_W - 1) / TILE_W, ty = (l.h + TILE_H - 1) / TILE_H;
-      tab.lv[i] = LevelDesc{l.img, l.out, l.h, l.w, tx, blocks};
+      tab.lv[i] = LevelDesc{l.img, l.out, l.stride, l.h, l.w, tx, blocks};
       blocks += tx * ty;
     } else {
-      tab.lv[i] = LevelDesc{nullptr, nullptr, 0, 0, 1, INT_MAX};  // never chosen
+      tab.lv[i] = LevelDesc{nullptr, nullptr, 0, 0, 0, 1, INT_MAX};  // never chosen
     }
   }
-  fast_score_nms_kernel<<<blocks, NT, 0, stream>>>(tab, min_th);
+  fast_score_nms_kernel<<<dim3(blocks, n_images), NT, 0, stream>>>(tab, min_th);
   return static_cast<int>(cudaGetLastError());
 }

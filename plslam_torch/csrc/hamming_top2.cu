@@ -58,12 +58,15 @@
 // 16 queries on the dense path; spreading a row's columns over more blocks
 // would need a merge across blocks. At 1024 rows the walk is bound by the
 // latency of its dependent reads, not by SMs.
-// Batches: gridDim.y = B problems that share the queries, each with its own
-// targets, gate and outputs at a fixed stride (the local mapper projects one
-// candidate set into 10 keyframes at once). Block (x, y) is the 16-row tile x
-// of problem y and does exactly what block x of a single problem does, so an
-// unbatched call is the B = 1 case of the same kernel. 10 x 2048 rows give
-// 1280 blocks where 2048 rows alone give 128, fewer than the 132 SMs.
+// Batches: gridDim.y = B problems, each with its own targets, gate and
+// outputs at a fixed stride, and its queries at a stride q_stride rows: 0
+// when the problems share the queries (the local mapper projects one
+// candidate set into 10 keyframes at once), n when each has its own (B
+// sequences tracked in one step match their own frames against their own
+// maps). Block (x, y) is the 16-row tile x of problem y and does exactly
+// what block x of a single problem does, so an unbatched call is the B = 1
+// case of the same kernel. 10 x 2048 rows give 1280 blocks where 2048 rows
+// alone give 128, fewer than the 132 SMs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -169,14 +172,15 @@ __device__ __forceinline__ void chunk_masks(const uint4 (&v)[GROUP + 1], int mis
 
 __global__ void __launch_bounds__(NT, 4)
 hamming_top2_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ t,
-                    const uint8_t* __restrict__ gate, int n, int m,
+                    const uint8_t* __restrict__ gate, int n, int m, int q_stride,
                     int* __restrict__ best_out, int* __restrict__ idx_out,
                     int* __restrict__ second_out, int* __restrict__ dense_tiles) {
   __shared__ uint16_t s_bits[2][GROUP][ROWS][32];  // per tile, row, lane: 16 gate bits
   __shared__ int s_cnt[2][GROUP][WARPS];
   __shared__ Top2 s_part[WARPS][ROWS];
 
-  // problem blockIdx.y of the batch: its targets, gate and outputs
+  // problem blockIdx.y of the batch: its queries, targets, gate and outputs
+  q += (size_t)blockIdx.y * q_stride * 8;
   t += (size_t)blockIdx.y * m * 8;
   gate += (size_t)blockIdx.y * n * m;
   best_out += (size_t)blockIdx.y * n;
@@ -337,15 +341,18 @@ hamming_top2_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__
 
 }  // namespace
 
-// q (n, 32) bytes shared by the batch, t (batch, m, 32) bytes, both 16-byte
+// q (n, 32) bytes shared by the batch (q_stride 0) or (batch, n, 32) bytes,
+// one set a problem (q_stride n); t (batch, m, 32) bytes, both 16-byte
 // aligned; gate (batch, n, m) bytes, any alignment, m < 2^22; outputs
 // (batch, n); dense_tiles: one int that counts tensor-core tiles.
 extern "C" int hamming_top2_batched_launch(const void* q, const void* t, const uint8_t* gate,
-                                           int n, int m, int batch, int* best, int* idx,
-                                           int* second, int* dense_tiles, cudaStream_t stream) {
+                                           int n, int m, int batch, int q_stride, int* best,
+                                           int* idx, int* second, int* dense_tiles,
+                                           cudaStream_t stream) {
+  if (q_stride != 0 && q_stride != n) return cudaErrorInvalidValue;
   const dim3 grid((n + ROWS - 1) / ROWS, batch);
   hamming_top2_kernel<<<grid, NT, 0, stream>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(t), gate, n, m,
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(t), gate, n, m, q_stride,
       best, idx, second, dense_tiles);
   return static_cast<int>(cudaGetLastError());
 }

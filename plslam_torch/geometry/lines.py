@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from . import se3
+
 
 def plucker_from_endpoints(p_start: torch.Tensor, p_end: torch.Tensor):
     """Endpoints (..., 3) -> Plücker (n, v): n = s×e (moment), v = e−s (dir)."""
@@ -25,11 +27,12 @@ def plucker_from_endpoints(p_start: torch.Tensor, p_end: torch.Tensor):
 
 
 def transform_plucker(R, t, n, v):
-    """World Plücker -> camera Plücker under x_cam = R x + t:
+    """World Plücker (..., N, 3) -> camera Plücker under x_cam = R x + t
+    (R (..., 3, 3), t (..., 3): one pose, or one per batch entry):
     n' = R n + [t]ₓ R v ;  v' = R v."""
-    Rv = v @ R.T
-    Rn = n @ R.T
-    n_c = Rn + torch.linalg.cross(t.expand(Rv.shape), Rv, dim=-1)
+    Rv = se3.rotate(R, v)
+    Rn = se3.rotate(R, n)
+    n_c = Rn + torch.linalg.cross(t[..., None, :].expand(Rv.shape), Rv, dim=-1)
     return n_c, Rv
 
 
@@ -43,8 +46,9 @@ def line_intrinsics(fx, fy, cx, cy, device=None) -> torch.Tensor:
 
 
 def project_plucker(K_line: torch.Tensor, n_cam: torch.Tensor) -> torch.Tensor:
-    """Camera-frame Plücker moment (..., 3) -> homogeneous image line (..., 3)."""
-    return n_cam @ K_line.T
+    """Camera-frame Plücker moments (..., N, 3) -> homogeneous image lines
+    (..., N, 3)."""
+    return se3.rotate(K_line, n_cam)
 
 
 def point_line_distance(l: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:

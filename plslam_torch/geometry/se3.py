@@ -10,8 +10,12 @@ chi²/step-size behaviour of the LM loops is directly comparable. Every
 function is written with ``torch.where`` (no data-dependent python
 branches), so ``torch.func.jacfwd`` differentiates through it. Every
 function also takes a leading batch of poses (``R: (..., 3, 3)``, ``t`` and
-``w: (..., 3)``, ``xi: (..., 6)``); a single pose goes through the same
-operations as before the batch form existed, so its results are unchanged.
+``w: (..., 3)``, ``xi: (..., 6)``). Products of 3x3 matrices and 3-vectors
+are three elementwise products summed in a fixed order (``_mm``, ``_mv``,
+``rotate``, and ``_sqnorm`` for a squared norm):
+a pose alone and the same pose inside a batch get the same bits, where a
+library product (MKL's on the CPU, cuBLAS's on the card) takes another path
+for a batch and rounds otherwise.
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ def hat(w: torch.Tensor) -> torch.Tensor:
 
 
 def _sqnorm(w: torch.Tensor) -> torch.Tensor:
-    return torch.dot(w, w) if w.dim() == 1 else (w * w).sum(-1)
+    """|w|^2 of 3-vectors, in a fixed order (not a library dot product)."""
+    return torch.addcmul(torch.addcmul(w[..., 0] * w[..., 0], w[..., 1], w[..., 1]),
+                         w[..., 2], w[..., 2])
 
 
 def _per_matrix(c: torch.Tensor) -> torch.Tensor:
@@ -44,9 +50,17 @@ def _per_matrix(c: torch.Tensor) -> torch.Tensor:
     return c if c.dim() == 0 else c[..., None, None]
 
 
+def _mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for 3x3 matrices, or batches of them, in a fixed order."""
+    return ((A[..., :, 0:1] * B[..., 0:1, :] + A[..., :, 1:2] * B[..., 1:2, :])
+            + A[..., :, 2:3] * B[..., 2:3, :])
+
+
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A @ x for one matrix and vector, or for a batch of them."""
-    return A @ x if x.dim() == 1 else (A @ x.unsqueeze(-1)).squeeze(-1)
+    """A @ x for a 3x3 matrix and a 3-vector, or batches of them, in a fixed
+    order."""
+    return ((A[..., :, 0] * x[..., None, 0] + A[..., :, 1] * x[..., None, 1])
+            + A[..., :, 2] * x[..., None, 2])
 
 
 def _coeffs(theta2: torch.Tensor):
@@ -64,7 +78,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     a, b, _ = (_per_matrix(x) for x in _coeffs(_sqnorm(w)))
     W = hat(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
-    return eye + a * W + b * (W @ W)
+    return eye + a * W + b * _mm(W, W)
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
@@ -106,7 +120,7 @@ def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
                       torch.full_like(theta2, 1.0 / 12.0))
     W = hat(w)
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
-    Vinv = eye - 0.5 * W + _per_matrix(cot) * (W @ W)
+    Vinv = eye - 0.5 * W + _per_matrix(cot) * _mm(W, W)
     return torch.cat([w, _mv(Vinv, t)], -1)
 
 
@@ -115,7 +129,7 @@ def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     w, u = xi[..., :3], xi[..., 3:]
     a, b, c = (_per_matrix(x) for x in _coeffs(_sqnorm(w)))
     W = hat(w)
-    WW = W @ W
+    WW = _mm(W, W)
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
     R = eye + a * W + b * WW
     V = eye + b * W + c * WW
@@ -124,7 +138,7 @@ def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def compose(Ra, ta, Rb, tb):
     """(Ra,ta) ∘ (Rb,tb): first apply b, then a."""
-    return Ra @ Rb, _mv(Ra, tb) + ta
+    return _mm(Ra, Rb), _mv(Ra, tb) + ta
 
 
 def inverse(R, t):
@@ -132,9 +146,21 @@ def inverse(R, t):
     return Rt, -_mv(Rt, t)
 
 
+def rotate(R, p):
+    """``p @ R.mT``: rows p (..., N, 3) multiplied by R (..., 3, 3), one
+    matrix or one per batch entry, as three fused multiply-adds in a fixed
+    order (a library product picks its kernel by shape and batch, and
+    rounds otherwise for a batch than for one matrix)."""
+    Rt = R.mT[..., None, :, :]
+    out = p[..., 0:1] * Rt[..., 0, :]
+    out = torch.addcmul(out, p[..., 1:2], Rt[..., 1, :])
+    return torch.addcmul(out, p[..., 2:3], Rt[..., 2, :])
+
+
 def apply(R, t, p):
-    """Transform points p (..., 3) by one pose."""
-    return p @ R.mT + t
+    """Transform points p (..., N, 3) by one pose, or each batch entry of
+    points by its own pose (R (..., 3, 3), t (..., 3))."""
+    return rotate(R, p) + t[..., None, :]
 
 
 def left_update(xi, R, t):
@@ -148,7 +174,7 @@ def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     polar decomposition). Float32 chains of hundreds of rotation products
     per frame otherwise contract det(R) exponentially."""
     for _ in range(2):
-        R = 0.5 * (3.0 * R - R @ (R.mT @ R))
+        R = 0.5 * (3.0 * R - _mm(R, _mm(R.mT, R)))
     return R
 
 

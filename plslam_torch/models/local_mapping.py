@@ -640,7 +640,7 @@ class LocalMapper:
         solve up to ``cfg.mapping.ba_dense_camera_cap`` cameras, the
         matrix-free PCG (``optim/ba_cg.py``) beyond. The landmark-sharded
         solver that the JAX package takes past the cap when more than one
-        device is visible is not ported (ROADMAP.md Queue A item 17)."""
+        device is visible is not ported (ROADMAP.md Queue A item 17b)."""
         mc = self.cfg.mapping
         C = prob.cam_R.shape[0]
         if C <= mc.ba_dense_camera_cap:
@@ -650,7 +650,7 @@ class LocalMapper:
         if mc.use_distributed_ba and prob.cam_R.is_cuda and torch.cuda.device_count() > 1:
             raise NotImplementedError(
                 f"BA over {C} cameras with {torch.cuda.device_count()} GPUs visible: the "
-                "distributed BA is ROADMAP.md Queue A item 17 (set "
+                "distributed BA is ROADMAP.md Queue A item 17b (set "
                 "cfg.mapping.use_distributed_ba=False to take the PCG solver)")
         return ba_cg.bundle_adjust_cg_stepped(
             self.cfg.camera, prob, iters1=mc.local_ba_iters1, iters2=mc.local_ba_iters2,

@@ -15,6 +15,11 @@ Frame-to-frame state (previous FrameData, pose, velocity, landmark
 bindings) stays on the device; the host copies one small result record per
 frame. Local-map tensors are uploaded only when the keyframe set changes.
 
+The device step takes optional leading batch axes: B trackers that share a
+configuration run one step for their B frames (parallel.multiseq), which
+hands each tracker its slice through ``process(precomputed_out=...)``. An
+unbatched step runs the same operations without the axis.
+
 Keyframe decision/creation follows NeedNewKeyFrame / CreateNewKeyFrame
 (:1423-1744): close-point bookkeeping, depth-sorted new landmark creation,
 line creation from endpoint depths.
@@ -63,6 +68,7 @@ from ..geometry import projection as gproj
 from ..geometry import se3
 from ..ops import initializer as mono_init_ops
 from ..ops import line_matching, matching
+from ..ops.batch import take_rows
 from ..optim import pose as pose_opt
 from ..utils import tracing
 from . import frame as mframe
@@ -79,11 +85,11 @@ def _inv_sigma2(octave, scale: float):
 
 
 def _project_points(cam, R, t, p3d):
-    pc = p3d @ R.T + t
-    z = pc[:, 2]
+    pc = se3.apply(R, t, p3d)
+    z = pc[..., 2]
     safe = torch.where(z.abs() > 1e-6, z, torch.full_like(z, 1e-6))
-    u = cam.fx * pc[:, 0] / safe + cam.cx
-    v = cam.fy * pc[:, 1] / safe + cam.cy
+    u = cam.fx * pc[..., 0] / safe + cam.cx
+    v = cam.fy * pc[..., 1] / safe + cam.cy
     uv = torch.stack([u, v], -1)
     in_img = (z > 0.05) & (u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height)
     return uv, pc, in_img
@@ -93,25 +99,26 @@ def _assemble_pose_obs(cfg, fd: FrameData, q_p3d, q_valid, pt_idx, pt_ok,
                        ln_ep3d, ln_valid, ln_idx, ln_ok):
     """Gather matched observations into fixed-shape PoseObs."""
     scale = cfg.orb.scale_factor
-    idx = pt_idx.long().clamp(0, fd.kp_xy_un.shape[0] - 1)
-    lidx = ln_idx.long().clamp(0, fd.ln_ep_un.shape[0] - 1)
-    nw, vw = glines.plucker_from_endpoints(ln_ep3d[:, 0], ln_ep3d[:, 1])
+    idx = pt_idx.long().clamp(0, fd.kp_xy_un.shape[-2] - 1)
+    lidx = ln_idx.long().clamp(0, fd.ln_ep_un.shape[-3] - 1)
+    nw, vw = glines.plucker_from_endpoints(ln_ep3d[..., 0, :], ln_ep3d[..., 1, :])
     return pose_opt.PoseObs(
-        p3d=q_p3d, uv=fd.kp_xy_un[idx], u_right=fd.kp_ur[idx],
-        inv_sigma2=_inv_sigma2(fd.kp_octave[idx], scale), valid=pt_ok & q_valid,
-        line_nw=nw, line_vw=vw, line_uv=fd.ln_ep_un[lidx],
-        line_inv_sigma2=torch.ones(ln_ep3d.shape[0], dtype=torch.float32,
+        p3d=q_p3d, uv=take_rows(fd.kp_xy_un, idx), u_right=take_rows(fd.kp_ur, idx),
+        inv_sigma2=_inv_sigma2(take_rows(fd.kp_octave, idx), scale), valid=pt_ok & q_valid,
+        line_nw=nw, line_vw=vw, line_uv=take_rows(fd.ln_ep_un, lidx),
+        line_inv_sigma2=torch.ones(ln_ep3d.shape[:-2], dtype=torch.float32,
                                    device=ln_ep3d.device),
         line_valid=ln_ok & ln_valid,
     )
 
 
 def _scatter_set(n: int, idx, ok, src):
-    """out = full(n, -1); out[idx[ok]] = src[ok] (indices unique where ok).
-    Rows not ok land in a spare slot that is cut off: no host sync."""
-    out = torch.full((n + 1,), -1, dtype=torch.int32, device=src.device)
+    """out = full(n, -1); out[idx[ok]] = src[ok] (indices unique where ok),
+    per batch entry. Rows not ok land in a spare slot that is cut off: no
+    host sync."""
+    out = torch.full(idx.shape[:-1] + (n + 1,), -1, dtype=torch.int32, device=src.device)
     tgt = torch.where(ok, idx.long(), torch.full_like(idx, n, dtype=torch.int64))
-    return out.scatter_(0, tgt, src.to(torch.int32))[:n]
+    return out.scatter_(-1, tgt, src.to(torch.int32).expand(tgt.shape))[..., :n]
 
 
 # ===========================================================================
@@ -143,8 +150,8 @@ def _motion_core(cfg, fd, q_p3d, q_desc, q_octave, q_angle, q_valid,
         gate = (
             matching.window_gate(uv_proj, fd.kp_xy_un, radius)
             & matching.octave_gate(q_octave, fd.kp_octave, -1, 1)
-            & q_ok[:, None]
-            & fd.kp_valid[None, :]
+            & q_ok[..., :, None]
+            & fd.kp_valid[..., None, :]
         )
         return matching.match_descriptors(
             q_desc, fd.kp_desc, gate, TH_HIGH,
@@ -154,7 +161,7 @@ def _motion_core(cfg, fd, q_p3d, q_desc, q_octave, q_angle, q_valid,
 
     m1 = run_match(1.0)
     m2 = run_match(2.0)
-    use_wide = m1.count < 20
+    use_wide = (m1.count < 20)[..., None]
     m = matching.MatchResult(*(torch.where(use_wide, b, a) for a, b in zip(m1, m2)))
 
     proj = line_matching.project_lines(cam, R_guess, t_guess, ln_ep3d, ln_valid)
@@ -192,8 +199,8 @@ def _local_core(cfg, fd, lm_p3d, lm_desc, lm_normal, lm_mind, lm_maxd,
 
     uv_proj, pc, in_img = _project_points(cam, R0, t0, lm_p3d)
     # IsInFrustum (Frame.cc:345-401): distance band + viewing angle
-    cam_center = -(R0.T @ t0)
-    po = lm_p3d - cam_center
+    _, cam_center = se3.inverse(R0, t0)
+    po = lm_p3d - cam_center[..., None, :]
     dist = torch.linalg.vector_norm(po, dim=-1)
     dist_ok = (dist >= 0.8 * lm_mind) & (dist <= 1.2 * lm_maxd)
     view_cos = (po * lm_normal).sum(-1) / (
@@ -213,8 +220,8 @@ def _local_core(cfg, fd, lm_p3d, lm_desc, lm_normal, lm_mind, lm_maxd,
     gate = (
         matching.window_gate(uv_proj, fd.kp_xy_un, radius)
         & matching.octave_gate(pred_level, fd.kp_octave, -1, 0)
-        & visible[:, None]
-        & fd.kp_valid[None, :]
+        & visible[..., :, None]
+        & fd.kp_valid[..., None, :]
     )
     m = matching.match_descriptors(
         lm_desc, fd.kp_desc, gate, TH_HIGH,
@@ -226,7 +233,7 @@ def _local_core(cfg, fd, lm_p3d, lm_desc, lm_normal, lm_mind, lm_maxd,
     pt_ok = m.ok | pre_matched
     comb_dist = torch.where(m.ok, m.dist, torch.full_like(m.dist, 300))  # fresh wins ties
     comb = matching.dedupe_targets(
-        matching._masked(pt_ok, pt_idx, comb_dist), fd.kp_desc.shape[0])
+        matching._masked(pt_ok, pt_idx, comb_dist), fd.kp_desc.shape[-2])
     pt_idx, pt_ok = comb.idx, comb.ok
 
     lproj = line_matching.project_lines(cam, R0, t0, lml_ep3d, lml_valid)
@@ -239,7 +246,7 @@ def _local_core(cfg, fd, lm_p3d, lm_desc, lm_normal, lm_mind, lm_maxd,
     ln_ok = lm_res.ok | ln_pre
     ln_dist = torch.where(lm_res.ok, lm_res.dist, torch.full_like(lm_res.dist, 300))
     lcomb = matching.dedupe_targets(
-        matching._masked(ln_ok, ln_idx, ln_dist), fd.ln_desc.shape[0])
+        matching._masked(ln_ok, ln_idx, ln_dist), fd.ln_desc.shape[-2])
     ln_idx, ln_ok = lcomb.idx, lcomb.ok
 
     obs = _assemble_pose_obs(cfg, fd, lm_p3d, lm_valid, pt_idx, pt_ok,
@@ -277,7 +284,22 @@ class FusedOut(NamedTuple):
 
 
 def _kth_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
-    return torch.sort(x).values[k - 1]
+    return torch.sort(x).values[..., k - 1]
+
+
+def _rescue_core(cfg, fd, lm_p3d, lm_desc, lm_valid, lml_ep3d, lml_valid, R_prev, t_prev):
+    """TrackReferenceKeyFrame equivalent (Tracking.cc:335-337,942-1032): the
+    LOCAL MAP's descriptors against the whole frame with NO spatial window,
+    then the pose LM from the LAST pose. Returns (MatchResult, PoseResult)."""
+    gate = lm_valid[..., :, None] & fd.kp_valid[..., None, :]
+    m = matching.match_descriptors(
+        lm_desc, fd.kp_desc, gate, TH_LOW,
+        nn_ratio=cfg.matcher.nn_ratio_reloc, dedupe=True)
+    obs = _assemble_pose_obs(
+        cfg, fd, lm_p3d, lm_valid, m.idx, m.ok, lml_ep3d, lml_valid,
+        torch.zeros(lml_valid.shape, dtype=torch.int32, device=lml_valid.device),
+        torch.zeros(lml_valid.shape, dtype=torch.bool, device=lml_valid.device))
+    return m, pose_opt.optimize_pose(cfg.camera, R_prev, t_prev, obs)
 
 
 def fused_track_step(
@@ -293,37 +315,47 @@ def fused_track_step(
     t_prev: torch.Tensor,
     R_vel: torch.Tensor,
     t_vel: torch.Tensor,
-    has_vel: bool,
+    has_vel,                     # bool, or a bool tensor with the batch's axes
     lm_p3d, lm_desc, lm_normal, lm_mind, lm_maxd, lm_valid,
     lml_ep3d, lml_desc, lml_valid,
     stereo: bool = False,
 ) -> FusedOut:
     """One tracked frame on the device. ``depth`` is the depth map, or with
-    ``stereo=True`` the quantized RIGHT image."""
+    ``stereo=True`` the quantized RIGHT image.
+
+    With a leading batch axis on every tensor (``gray`` (B, H, W), ``prev``
+    and the local map stacked, ``has_vel`` a (B,) bool tensor) it tracks B
+    independent sequences in one step: each hand kernel launches once for
+    all B, and row b of every output equals the step of sequence b alone."""
     cam = cfg.camera
     dev = lm_p3d.device
-    LM = lm_p3d.shape[0]
-    LL = lml_ep3d.shape[0]
+    batched = gray.dim() == 3
+    LM = lm_p3d.shape[-2]
+    LL = lml_ep3d.shape[-3]
     neg = lambda x: torch.full_like(x, -1)  # noqa: E731
     prev_slot_pt = torch.where(
-        prev_slot_pt >= 0, pt_remap[prev_slot_pt.long().clamp(0, LM - 1)], neg(prev_slot_pt))
+        prev_slot_pt >= 0, take_rows(pt_remap, prev_slot_pt.long().clamp(0, LM - 1)),
+        neg(prev_slot_pt))
     prev_slot_ln = torch.where(
-        prev_slot_ln >= 0, ln_remap[prev_slot_ln.long().clamp(0, LL - 1)], neg(prev_slot_ln))
+        prev_slot_ln >= 0, take_rows(ln_remap, prev_slot_ln.long().clamp(0, LL - 1)),
+        neg(prev_slot_ln))
 
     fd = (mframe.build_frame_stereo(gray, depth, cfg, quantized=True) if stereo
           else mframe.build_frame(gray, depth, cfg, quantized=True))
 
-    # velocity-model pose guess
-    Rg, tg = se3.compose(R_vel, t_vel, R_prev, t_prev) if has_vel else (R_prev, t_prev)
+    # velocity-model pose guess (jnp.where on a traced flag in the JAX package)
+    has_vel = torch.as_tensor(has_vel, dtype=torch.bool, device=dev)
+    Rc, tc = se3.compose(R_vel, t_vel, R_prev, t_prev)
+    Rg = torch.where(has_vel[..., None, None], Rc, R_prev)
+    tg = torch.where(has_vel[..., None], tc, t_prev)
 
     # ---- queries from the previous frame -------------------------------
-    Rwc = R_prev.T
-    c_prev = -(Rwc @ t_prev)
+    Rwc, c_prev = se3.inverse(R_prev, t_prev)
     slot = prev_slot_pt.long().clamp(0, LM - 1)
-    bound = (prev_slot_pt >= 0) & lm_valid[slot]
-    p_map = lm_p3d[slot]
+    bound = (prev_slot_pt >= 0) & take_rows(lm_valid, slot)
+    p_map = take_rows(lm_p3d, slot)
     pc_prev = gproj.backproject(cam, prev.kp_xy_un, prev.kp_depth)
-    p_temp = pc_prev @ Rwc.T + c_prev
+    p_temp = se3.apply(Rwc, c_prev, pc_prev)
     has_d = prev.kp_depth > 0
     t_cand = prev.kp_valid & has_d & ~bound
     # UpdateLastFrame (Tracking.cc:1044-1210): ALL close points (depth <
@@ -331,26 +363,27 @@ def fused_track_step(
     # floor when close points are scarce
     cap = cfg.tracking.temporal_points_cap
     dsel = torch.where(t_cand, prev.kp_depth, torch.full_like(prev.kp_depth, float("inf")))
-    kth = _kth_smallest(dsel, cap)
+    kth = _kth_smallest(dsel, cap)[..., None]
     t_sel = t_cand & ((dsel <= kth) | (dsel <= cfg.tracking.th_depth))
-    q_p3d = torch.where(bound[:, None], p_map, p_temp)
+    q_p3d = torch.where(bound[..., None], p_map, p_temp)
     q_valid = bound | t_sel
 
     lslot = prev_slot_ln.long().clamp(0, LL - 1)
-    lbound = (prev_slot_ln >= 0) & lml_valid[lslot]
-    l_map = lml_ep3d[lslot]
+    lbound = (prev_slot_ln >= 0) & take_rows(lml_valid, lslot)
+    l_map = take_rows(lml_ep3d, lslot)
     l_temp = torch.stack(
-        [gproj.backproject(cam, prev.ln_ep_un[:, k], prev.ln_depth[:, k]) @ Rwc.T + c_prev
+        [se3.apply(Rwc, c_prev, gproj.backproject(cam, prev.ln_ep_un[..., k, :],
+                                                  prev.ln_depth[..., k]))
          for k in (0, 1)],
-        dim=1,
+        dim=-2,
     )
-    lt_cand = prev.ln_valid & (prev.ln_depth > 0).all(1) & ~lbound
+    lt_cand = prev.ln_valid & (prev.ln_depth > 0).all(-1) & ~lbound
     lcap = cfg.tracking.temporal_lines_cap
-    ldsel = torch.where(lt_cand, prev.ln_depth.amax(1),
-                        torch.full_like(prev.ln_depth[:, 0], float("inf")))
-    lkth = _kth_smallest(ldsel, lcap)
+    ldsel = torch.where(lt_cand, prev.ln_depth.amax(-1),
+                        torch.full_like(prev.ln_depth[..., 0], float("inf")))
+    lkth = _kth_smallest(ldsel, lcap)[..., None]
     lt_sel = lt_cand & ((ldsel <= lkth) | (ldsel <= cfg.tracking.th_depth))
-    l_ep3d = torch.where(lbound[:, None, None], l_map, l_temp)
+    l_ep3d = torch.where(lbound[..., None, None], l_map, l_temp)
     l_valid = lbound | lt_sel
 
     # ---- motion step ----------------------------------------------------
@@ -358,37 +391,45 @@ def fused_track_step(
                       prev.kp_angle, q_valid, l_ep3d, prev.ln_desc, l_valid,
                       Rg, tg)
 
-    # ---- rescue step ----------------------------------------------------
-    # TrackReferenceKeyFrame equivalent (Tracking.cc:335-337,942-1032):
-    # when the motion stage starves, match the LOCAL MAP's descriptors
-    # against the whole frame with NO spatial window, then LM the pose from
-    # the LAST pose. One host branch per frame keeps it off the common path.
-    mo_n = int(mo.n_inliers)
-    use_rescue = False
-    r_n = 0
-    if mo_n < cfg.tracking.rescue_min_inliers:
-        gate = lm_valid[:, None] & fd.kp_valid[None, :]
-        m = matching.match_descriptors(
-            lm_desc, fd.kp_desc, gate, TH_LOW,
-            nn_ratio=cfg.matcher.nn_ratio_reloc, dedupe=True)
-        obs = _assemble_pose_obs(
-            cfg, fd, lm_p3d, lm_valid, m.idx, m.ok, lml_ep3d, lml_valid,
-            torch.zeros(LL, dtype=torch.int32, device=dev),
-            torch.zeros(LL, dtype=torch.bool, device=dev))
-        res = pose_opt.optimize_pose(cam, R_prev, t_prev, obs)
-        r_ok = m.ok & res.inlier_pts
-        r_n = int(res.n_inliers)
-        use_rescue = r_n > mo_n
-
     # pre-bindings for the local step: slot -> matched cur feature
-    if use_rescue:
-        pre_feat = torch.where(r_ok, m.idx, torch.full_like(m.idx, -1))
-        lpre_feat = torch.full((LL,), -1, dtype=torch.int32, device=dev)
-        R_mid, t_mid, n_track = res.R, res.t, r_n
-    else:
-        pre_feat = _scatter_set(LM, slot, bound & mo.pt_inlier, mo.pt_idx)
-        lpre_feat = _scatter_set(LL, lslot, lbound & mo.ln_inlier, mo.ln_idx)
-        R_mid, t_mid, n_track = mo.R, mo.t, mo_n
+    pre_feat = _scatter_set(LM, slot, bound & mo.pt_inlier, mo.pt_idx)
+    lpre_feat = _scatter_set(LL, lslot, lbound & mo.ln_inlier, mo.ln_idx)
+    R_mid, t_mid = mo.R, mo.t
+    n_track = mo.n_inliers.to(torch.int32)
+    n_rescue = torch.zeros_like(n_track)
+
+    # ---- rescue step ----------------------------------------------------
+    # when the motion stage starves, the windowless local-map match
+    # (_rescue_core) takes the frame if it finds more inliers. One host read
+    # of the B motion-inlier counts per step keeps it off the common path;
+    # it runs once, on the sequences that need it, and its results are
+    # written back to their rows.
+    mo_n = mo.n_inliers.reshape(-1).tolist()
+    rows = [b for b, n in enumerate(mo_n) if n < cfg.tracking.rescue_min_inliers]
+    if rows:
+        if batched and len(rows) < len(mo_n):
+            sub = torch.as_tensor(rows, device=dev)
+            pick = lambda x: x.index_select(0, sub)  # noqa: E731
+        else:
+            pick = lambda x: x  # noqa: E731
+        m, res = _rescue_core(cfg, FrameData(*map(pick, fd)), pick(lm_p3d), pick(lm_desc),
+                              pick(lm_valid), pick(lml_ep3d), pick(lml_valid),
+                              pick(R_prev), pick(t_prev))
+        r_n = res.n_inliers.reshape(-1).tolist()
+        won = [j for j, n in enumerate(r_n) if n > mo_n[rows[j]]]
+        if won:
+            if batched:
+                dst = torch.as_tensor([rows[j] for j in won], device=dev)
+                src = torch.as_tensor(won, device=dev)
+                put = lambda full, part: full.index_copy(0, dst, part.index_select(0, src))  # noqa: E731
+            else:
+                put = lambda full, part: part  # noqa: E731
+            pre_feat = put(pre_feat, torch.where(m.ok & res.inlier_pts, m.idx, neg(m.idx)))
+            lpre_feat = put(lpre_feat, torch.full(res.inlier_lines.shape, -1, dtype=torch.int32,
+                                                  device=dev))
+            R_mid, t_mid = put(R_mid, res.R), put(t_mid, res.t)
+            n_track = put(n_track, res.n_inliers.to(torch.int32))
+            n_rescue = put(n_rescue, res.n_inliers.to(torch.int32))
 
     # ---- local-map step -------------------------------------------------
     lo = _local_core(cfg, fd, lm_p3d, lm_desc, lm_normal, lm_mind, lm_maxd,
@@ -396,14 +437,14 @@ def fused_track_step(
                      lpre_feat, R_mid, t_mid)
     # trust the local-map refinement only when it has real support
     use_local = lo.n_inliers >= cfg.tracking.min_inliers_local_map
-    R_fin = torch.where(use_local, lo.R, R_mid)
-    t_fin = torch.where(use_local, lo.t, t_mid)
+    R_fin = torch.where(use_local[..., None, None], lo.R, R_mid)
+    t_fin = torch.where(use_local[..., None], lo.t, t_mid)
 
     ok_slot = lo.pt_inlier & (lo.pt_idx >= 0)
-    n = fd.kp_valid.shape[0]
+    n = fd.kp_valid.shape[-1]
     lm_ids = torch.arange(LM, dtype=torch.int32, device=dev)
     feat_slot_pt = _scatter_set(n, lo.pt_idx, ok_slot, lm_ids)
-    nl = fd.ln_valid.shape[0]
+    nl = fd.ln_valid.shape[-1]
     lok_slot = lo.ln_inlier & (lo.ln_idx >= 0)
     feat_slot_ln = _scatter_set(nl, lo.ln_idx, lok_slot,
                                 torch.arange(LL, dtype=torch.int32, device=dev))
@@ -414,9 +455,8 @@ def fused_track_step(
 
     # close-point stats for the keyframe decision (NeedNewKeyFrame)
     close = fd.kp_valid & (fd.kp_depth > 0) & (fd.kp_depth < cfg.tracking.th_depth)
-    tracked_close = (close & (feat_slot_pt >= 0)).sum(dtype=torch.int32)
-    creatable_close = (close & (feat_slot_pt < 0)).sum(dtype=torch.int32)
-    i32 = lambda v: torch.as_tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    tracked_close = (close & (feat_slot_pt >= 0)).sum(-1, dtype=torch.int32)
+    creatable_close = (close & (feat_slot_pt < 0)).sum(-1, dtype=torch.int32)
 
     return FusedOut(
         fd=fd, R=R_fin, t=t_fin, R_vel=Rvn, t_vel=tvn,
@@ -425,11 +465,35 @@ def fused_track_step(
         lm_visible=lo.pt_visible,
         lml_feat=torch.where(lok_slot, lo.ln_idx, neg(lo.ln_idx)), lml_inlier=lok_slot,
         stats=torch.stack([
-            mo.n_pt_matches.to(torch.int32), i32(n_track),
-            lo.n_inliers.to(torch.int32), tracked_close, creatable_close,
-            i32(r_n if use_rescue else 0),
-        ]),
+            mo.n_pt_matches.to(torch.int32), n_track,
+            lo.n_inliers.to(torch.int32), tracked_close, creatable_close, n_rescue,
+        ], -1),
     )
+
+
+def _record_tensors(out: FusedOut) -> list[torch.Tensor]:
+    """The fields of a step that its retirement (``Tracker._finish``) reads
+    on the host."""
+    fd = out.fd
+    return [out.stats, out.R, out.t, out.lm_feat, out.lm_inlier, out.lm_visible,
+            out.lml_feat, out.lml_inlier, fd.kp_xy_un, fd.kp_octave, fd.kp_depth,
+            fd.kp_valid, fd.ln_ep_un, fd.ln_desc, fd.ln_depth, fd.ln_valid]
+
+
+class BatchRecord:
+    """The retirement fields of a batched step (leading axis B), copied to
+    the host in ONE transfer for all B sequences at the first read; ``row(b)``
+    is sequence b's, as ``_to_host`` of its own step would give it."""
+
+    def __init__(self, out: FusedOut):
+        self._tensors = _record_tensors(out)
+        self._host: list[np.ndarray] | None = None
+
+    def row(self, b: int) -> list[np.ndarray]:
+        if self._host is None:
+            self._host = _to_host(self._tensors)
+            self._tensors = None
+        return [h[b] for h in self._host]
 
 
 def _to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
@@ -565,23 +629,27 @@ class Tracker:
         self._ln_remap_np = None
 
     # ------------------------------------------------------------------ API
-    def process(self, gray: np.ndarray, depth: np.ndarray, timestamp: float):
+    def process(self, gray: np.ndarray, depth: np.ndarray, timestamp: float,
+                precomputed_out: FusedOut | None = None, host_record=None):
         """Track one RGB-D frame (uint8 or float gray; uint16 depth in
         depth_map_factor units, or float metres); for a stereo tracker
         ``depth`` is the right image (``process_stereo``).
 
         Pipelined lag-1: returns the PREVIOUS frame's (R, t) world-to-camera
-        (or None). Call :meth:`flush` to drain the last in-flight frame."""
-        self.frame_id += 1
-        if self.state == OK and self._pending_gauge is not None:
-            self._apply_pending_gauge()
-        if self.state == OK and self.vo_mode and self.frame_id % 2 == 0:
-            self._try_reacquire_map()
-        gray, depth = self._quantize_inputs(gray, depth)
-        gray = torch.from_numpy(gray).to(self.device)
-        if self.sensor != "stereo":
-            depth = depth.astype(np.int32)
-        depth = torch.from_numpy(depth).to(self.device)
+        (or None). Call :meth:`flush` to drain the last in-flight frame.
+
+        ``precomputed_out``: this frame's step, computed outside (the
+        batched multi-sequence frontend, parallel.multiseq, runs one step for
+        B trackers in OK state after calling their :meth:`begin_frame`, and
+        hands each its slice; the images are then not read);
+        ``host_record``: a callable returning that step's retirement fields
+        on the host (a row of ``BatchRecord``)."""
+        if precomputed_out is not None:
+            if self.state != OK:
+                raise RuntimeError("a precomputed step needs a tracker in OK state")
+            return self._track(None, None, timestamp, precomputed_out, host_record)
+        self.begin_frame()
+        gray, depth = self._inputs_to_device(gray, depth)
         if self.state == NOT_INITIALIZED:
             init = (self._monocular_initialization if self.sensor == "mono"
                     else self._stereo_initialization)
@@ -599,8 +667,30 @@ class Tracker:
                 self.reset()
             self.n_lost_frames += 1
             return None
-        # OK: dispatch this frame, then retire the oldest in-flight one
-        out = self._dispatch(gray, depth)
+        return self._track(gray, depth, timestamp)
+
+    def begin_frame(self):
+        """Count a new frame and do what the tracker owes before its step is
+        dispatched: apply a published gauge correction, and in VO mode retry
+        relocalization every second frame. ``process`` calls it; the batched
+        frontend calls it before it reads ``dispatch_args``."""
+        self.frame_id += 1
+        if self.state == OK and self._pending_gauge is not None:
+            self._apply_pending_gauge()
+        if self.state == OK and self.vo_mode and self.frame_id % 2 == 0:
+            self._try_reacquire_map()
+
+    def _inputs_to_device(self, gray, depth):
+        """Quantized inputs (``_quantize_inputs``) as device tensors."""
+        gray, depth = self._quantize_inputs(gray, depth)
+        if self.sensor != "stereo":
+            depth = depth.astype(np.int32)
+        return torch.from_numpy(gray).to(self.device), torch.from_numpy(depth).to(self.device)
+
+    def _track(self, gray, depth, timestamp, out=None, host_record=None):
+        """OK state: dispatch this frame (or take its precomputed step), then
+        retire the oldest in-flight one."""
+        out = self._dispatch(gray, depth, out=out)
         result = None
         if len(self._queue) >= self.pipeline_depth:
             pending = self._queue.pop(0)
@@ -620,7 +710,7 @@ class Tracker:
                     return self.last_pose
                 return None
         self._queue.append(dict(
-            out=out, timestamp=timestamp, frame_id=self.frame_id,
+            out=out, host=host_record, timestamp=timestamp, frame_id=self.frame_id,
             lp_ids=self._lp_ids, ll_ids=self._ll_ids, epoch=self._corr_epoch,
         ))
         return result
@@ -699,16 +789,19 @@ class Tracker:
 
     def dispatch_args(self):
         """The fused step's tensor arguments for this tracker's next frame
-        (minus the images)."""
+        (minus the images); the batched frontend stacks them across
+        trackers."""
         return (self._prev_fd, self._prev_slot_pt, self._prev_slot_ln,
                 self._pt_remap, self._ln_remap,
                 self._R, self._t, self._R_vel, self._t_vel, self._has_vel,
                 *self._lm_args)
 
-    def _dispatch(self, gray, depth) -> FusedOut:
-        """Run the fused step and optimistically advance device state."""
-        out = fused_track_step(self.cfg, gray, depth, *self.dispatch_args(),
-                               stereo=self.sensor == "stereo")
+    def _dispatch(self, gray, depth, out: FusedOut | None = None) -> FusedOut:
+        """Run the fused step (unless ``out`` holds it, computed by a
+        batched step) and optimistically advance device state."""
+        if out is None:
+            out = fused_track_step(self.cfg, gray, depth, *self.dispatch_args(),
+                                   stereo=self.sensor == "stereo")
         self._pt_remap = self._id_pt
         self._ln_remap = self._id_ln
         self._pt_remap_np = None
@@ -1033,13 +1126,11 @@ class Tracker:
         lp_ids = pending["lp_ids"]
         ll_ids = pending["ll_ids"]
         fd = out.fd
+        host = pending.get("host")
         (stats, R, t, lm_feat, lm_inlier, lm_vis, lml_feat, lml_inlier,
          kp_xy_un, kp_octave, kp_depth, kp_valid,
-         ln_ep_un, ln_desc, ln_depth, ln_valid) = _to_host([
-             out.stats, out.R, out.t, out.lm_feat, out.lm_inlier, out.lm_visible,
-             out.lml_feat, out.lml_inlier, fd.kp_xy_un, fd.kp_octave,
-             fd.kp_depth, fd.kp_valid, fd.ln_ep_un, fd.ln_desc, fd.ln_depth,
-             fd.ln_valid])
+         ln_ep_un, ln_desc, ln_depth, ln_valid) = (
+             host() if host is not None else _to_host(_record_tensors(out)))
         R = np.array(R)
         t = np.array(t)
         # frames dispatched before a gauge correction retire in the new

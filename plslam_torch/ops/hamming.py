@@ -7,7 +7,9 @@ hand-written kernel ``csrc/hamming_top2.cu``, which never materializes the
 (N, M) distance matrix; on CPU tensors it runs :func:`hamming_top2_plain`.
 The kernel chooses per 16 x 512 tile, on the device, between a sparse walk
 over the gated pairs and the tensor cores; :func:`dense_tiles` counts the
-tiles that took the tensor cores. ``hamming_top2_batched`` runs B such
+tiles that took the tensor cores. ``hamming_top2`` takes leading batch
+axes: B problems, each with its own queries, targets and gate (B sequences
+tracked in one step), in one launch. ``hamming_top2_batched`` runs B
 problems that share their queries (one candidate set against B keyframes)
 in one launch of the same kernel.
 
@@ -18,6 +20,7 @@ Replaces the reference's per-pair popcount loop
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -27,22 +30,23 @@ BIG = 1 << 20  # distance of a fully gated row
 
 
 def unpack_bits(desc_u8: torch.Tensor) -> torch.Tensor:
-    """(N, 32) uint8 descriptors -> (N, 256) uint8 bits (LSB-first per byte,
-    matching the OpenCV byte layout used by ops.orb)."""
+    """(..., N, 32) uint8 descriptors -> (..., N, 256) uint8 bits (LSB-first
+    per byte, matching the OpenCV byte layout used by ops.orb)."""
     shifts = torch.arange(8, dtype=torch.uint8, device=desc_u8.device)
-    bits = (desc_u8[:, :, None] >> shifts) & 1  # (N, 32, 8)
-    return bits.reshape(desc_u8.shape[0], 256)
+    bits = (desc_u8[..., None] >> shifts) & 1  # (..., N, 32, 8)
+    return bits.reshape(desc_u8.shape[:-1] + (256,))
 
 
 def hamming_matrix(a_u8: torch.Tensor, b_u8: torch.Tensor) -> torch.Tensor:
-    """All-pairs Hamming distances. a: (N, 32) u8, b: (M, 32) u8 -> (N, M) i32.
+    """All-pairs Hamming distances. a: (..., N, 32) u8, b: (..., M, 32) u8
+    -> (..., N, M) i32, over any leading batch.
 
     hamming(a, b) = |a| + |b| - 2 a.b over 0/1 bit vectors: a float32 matrix
     product of integers <= 256, exact (TF32 is off, see the package init)."""
     a = unpack_bits(a_u8).float()
     b = unpack_bits(b_u8).float()
-    g = a @ b.T
-    return (a.sum(1)[:, None] + b.sum(1)[None, :] - 2.0 * g).to(torch.int32)
+    g = a @ b.mT
+    return (a.sum(-1)[..., :, None] + b.sum(-1)[..., None, :] - 2.0 * g).to(torch.int32)
 
 
 def hamming_pairs(a_u8: torch.Tensor, b_u8: torch.Tensor) -> torch.Tensor:
@@ -51,17 +55,20 @@ def hamming_pairs(a_u8: torch.Tensor, b_u8: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_top2_plain(q_desc, t_desc, gate):
-    """Plain PyTorch version of the kernel: (best, idx, second) int32 (N,)."""
-    n, m = q_desc.shape[0], t_desc.shape[0]
+    """Plain PyTorch version of the kernel: q_desc (..., N, 32), t_desc
+    (..., M, 32), gate (..., N, M) -> (best, idx, second), each (..., N)
+    int32, over any leading batch."""
+    n, m = q_desc.shape[-2], t_desc.shape[-2]
+    lead = torch.broadcast_shapes(q_desc.shape[:-2], t_desc.shape[:-2], gate.shape[:-2])
     big = torch.full((), BIG, dtype=torch.int32, device=q_desc.device)
     if m == 0:
-        full = big.expand(n).clone()
+        full = big.expand(lead + (n,)).clone()
         return full, torch.full_like(full, -1), full.clone()
     masked = torch.where(gate, hamming_matrix(q_desc, t_desc), big)
-    best, idx = masked.min(1)  # first minimum
+    best, idx = masked.min(-1)  # first minimum
     idx = idx.to(torch.int32)
     cols = torch.arange(m, device=q_desc.device)
-    second = torch.where(cols[None, :] == idx[:, None], big, masked).amin(1)
+    second = torch.where(cols == idx[..., None], big, masked).amin(-1)
     idx = torch.where(best < BIG, idx, torch.full_like(idx, -1))
     return best, idx, second
 
@@ -71,7 +78,7 @@ def hamming_top2_batched_plain(q_desc, t_desc, gate):
     t_desc (B,M,32), gate (B,N,M) -> 3 x (B,N) int32."""
     outs = [hamming_top2_plain(q_desc, t_desc[b], gate[b]) for b in range(t_desc.shape[0])]
     if not outs:
-        e = torch.empty((0, q_desc.shape[0]), dtype=torch.int32, device=q_desc.device)
+        e = torch.empty((0, q_desc.shape[-2]), dtype=torch.int32, device=q_desc.device)
         return e, e.clone(), e.clone()
     return tuple(torch.stack(x) for x in zip(*outs))
 
@@ -86,9 +93,11 @@ def _check(name, x, dtype, shape):
 
 def _launch(q_desc, t_desc, gate):
     """Checks the tensors and launches the kernel on the current stream for
-    the B = t_desc.shape[0] problems of t_desc (B, M, 32), gate (B, N, M)."""
-    n, (batch, m) = q_desc.shape[0], t_desc.shape[:2]
-    _check("q_desc", q_desc, torch.uint8, (n, 32))
+    the B = t_desc.shape[0] problems of t_desc (B, M, 32), gate (B, N, M),
+    with queries q_desc (N, 32) shared by all or (B, N, 32), one set each."""
+    n, (batch, m) = q_desc.shape[-2], t_desc.shape[:2]
+    shared = q_desc.dim() == 2
+    _check("q_desc", q_desc, torch.uint8, (n, 32) if shared else (batch, n, 32))
     _check("t_desc", t_desc, torch.uint8, (batch, m, 32))
     _check("gate", gate, torch.bool, (batch, n, m))
     for name, x in (("q_desc", q_desc), ("t_desc", t_desc)):
@@ -106,29 +115,38 @@ def _launch(q_desc, t_desc, gate):
     counter = _dense_counter(q_desc.device)
     fn = cuda_build.function(
         "hamming_top2", "hamming_top2_batched_launch",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
     with torch.cuda.device(q_desc.device):
         err = fn(q_desc.data_ptr(), t_desc.data_ptr(), gate.data_ptr(), n, m, batch,
-                 best.data_ptr(), idx.data_ptr(), second.data_ptr(), counter.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
+                 0 if shared else n, best.data_ptr(), idx.data_ptr(), second.data_ptr(),
+                 counter.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"hamming_top2 kernel launch failed: cudaError {err}")
     return best, idx, second, True
 
 
 def hamming_top2(q_desc: torch.Tensor, t_desc: torch.Tensor, gate: torch.Tensor):
-    """Fused gated Hamming top-2. q_desc (N,32) u8, t_desc (M,32) u8,
-    gate (N,M) bool -> (best (N,), idx (N,), second (N,)) int32.
+    """Fused gated Hamming top-2. q_desc (..., N, 32) u8, t_desc (..., M, 32)
+    u8, gate (..., N, M) bool -> (best, idx, second), each (..., N) int32.
 
+    Leading axes are a batch of problems, each with its own queries, targets
+    and gate (B sequences tracked in one step): one launch for all of them.
     ``best``/``second`` are BIG and ``idx`` is -1 on a row with nothing
     gated. CUDA tensors go through the kernel, CPU tensors through
     :func:`hamming_top2_plain`; both give the same values."""
     if q_desc.device.type == "cpu":
         return hamming_top2_plain(q_desc, t_desc, gate)
-    best, idx, second, launched = _launch(q_desc, t_desc[None], gate[None])
+    lead, (n, m) = gate.shape[:-2], gate.shape[-2:]
+    if q_desc.shape[:-1] != lead + (n,) or t_desc.shape[:-1] != lead + (m,):
+        raise ValueError("hamming_top2: queries (..., N, 32), targets (..., M, 32) and gate "
+                         f"(..., N, M) with the same leading axes, got {tuple(q_desc.shape)}, "
+                         f"{tuple(t_desc.shape)}, {tuple(gate.shape)}")
+    nb = math.prod(lead)
+    best, idx, second, launched = _launch(q_desc.reshape(nb, n, 32), t_desc.reshape(nb, m, 32),
+                                          gate.reshape(nb, n, m))
     if launched:
         hamming_top2.launches += 1
-    return best[0], idx[0], second[0]
+    return best.reshape(lead + (n,)), idx.reshape(lead + (n,)), second.reshape(lead + (n,))
 
 
 def hamming_top2_batched(q_desc: torch.Tensor, t_desc: torch.Tensor, gate: torch.Tensor):
@@ -137,6 +155,9 @@ def hamming_top2_batched(q_desc: torch.Tensor, t_desc: torch.Tensor, gate: torch
     (best, idx, second), each (B,N) int32, row b equal to
     ``hamming_top2(q_desc, t_desc[b], gate[b])``. CPU tensors go through
     :func:`hamming_top2_batched_plain`."""
+    if q_desc.dim() != 2:
+        raise ValueError("hamming_top2_batched: the queries (N, 32) are shared; problems "
+                         "with their own queries go through hamming_top2's leading axes")
     if q_desc.device.type == "cpu":
         return hamming_top2_batched_plain(q_desc, t_desc, gate)
     best, idx, second, launched = _launch(q_desc, t_desc, gate)

@@ -8,6 +8,9 @@ The blur and Sobel stencils are written as shifted adds over a reflect pad,
 in the same order and in float32, exactly like the JAX package — NOT as
 ``F.conv2d``: cuDNN runs float32 convolutions in TF32 by default and sums
 in another order, and either change flips FAST thresholds downstream.
+
+Every function takes images (..., H, W): optional leading batch axes (B
+sequences tracked in one step) run through the same operations.
 """
 
 from __future__ import annotations
@@ -27,16 +30,18 @@ def pyramid_shapes(h: int, w: int, n_levels: int, scale: float):
 
 
 def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize with half-pixel centers (cv::INTER_LINEAR semantics,
-    no antialias)."""
-    out = F.interpolate(img[None, None], size=out_hw, mode="bilinear",
+    """Bilinear resize of (..., H, W) with half-pixel centers
+    (cv::INTER_LINEAR semantics, no antialias)."""
+    h, w = img.shape[-2:]
+    out = F.interpolate(img.reshape(-1, 1, h, w), size=out_hw, mode="bilinear",
                         align_corners=False, antialias=False)
-    return out[0, 0]
+    return out.reshape(img.shape[:-2] + tuple(out_hw))
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int, scale: float) -> list[torch.Tensor]:
-    """Image pyramid; level l is resized from level l-1 (like the reference)."""
-    h, w = img.shape
+    """Image pyramid of (..., H, W); level l is resized from level l-1 (like
+    the reference)."""
+    h, w = img.shape[-2:]
     shapes = pyramid_shapes(h, w, n_levels, scale)
     levels = [img]
     for l in range(1, n_levels):
@@ -59,16 +64,17 @@ def _reflect_index(n: int, r: int, device) -> torch.Tensor:
 
 
 def _sep_stencil(img: torch.Tensor, k: np.ndarray, axis: int) -> torch.Tensor:
-    """1D stencil along an axis as shifted adds over a reflect pad."""
+    """1D stencil along an image axis (0: rows, 1: columns) as shifted adds
+    over a reflect pad."""
     r = len(k) // 2
-    h, w = img.shape
+    h, w = img.shape[-2:]
     if axis == 0:
-        x = img.index_select(0, _reflect_index(h, r, img.device))
+        x = img.index_select(-2, _reflect_index(h, r, img.device))
     else:
-        x = img.index_select(1, _reflect_index(w, r, img.device))
+        x = img.index_select(-1, _reflect_index(w, r, img.device))
     out = None
     for i, kv in enumerate(k):
-        s = x[i:i + h, :] if axis == 0 else x[:, i:i + w]
+        s = x[..., i:i + h, :] if axis == 0 else x[..., :, i:i + w]
         term = s * float(kv)
         out = term if out is None else out + term
     return out

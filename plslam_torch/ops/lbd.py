@@ -42,21 +42,25 @@ _FLIP_PERM = _flip_perm()
 
 
 def _sample_nearest(imgmap: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbor sampling via one linearized gather."""
-    h, w = imgmap.shape
+    """Nearest-neighbor sampling of (..., H, W) maps via one linearized gather
+    per image."""
+    h, w = imgmap.shape[-2:]
     xi = torch.round(x).to(torch.int64).clamp(0, w - 1)
     yi = torch.round(y).to(torch.int64).clamp(0, h - 1)
-    return imgmap.reshape(-1)[yi * w + xi]
+    lead = imgmap.shape[:-2]
+    flat = (yi * w + xi).reshape(lead + (-1,))
+    return imgmap.reshape(lead + (-1,)).gather(-1, flat).reshape(xi.shape)
 
 
 def lbd_descriptors(
     gx: torch.Tensor,
     gy: torch.Tensor,
-    endpoints: torch.Tensor,  # (NL, 2, 2)
-    valid: torch.Tensor,      # (NL,)
+    endpoints: torch.Tensor,  # (..., NL, 2, 2)
+    valid: torch.Tensor,      # (..., NL)
     cfg: LineConfig,
 ) -> torch.Tensor:
-    """Quantized LBD descriptors (NL, 72) uint8 from precomputed gradients.
+    """Quantized LBD descriptors (..., NL, 72) uint8 from precomputed
+    gradients (..., H, W).
 
     Layout: band-major, [mean+, mean-, meanpar+, meanpar-,
     std+, std-, stdpar+, stdpar-] per band; each 36-dim half is
@@ -66,27 +70,27 @@ def lbd_descriptors(
     rpb = _ROWS_PER_BAND
     rows = nb * rpb
 
-    s = endpoints[:, 0]  # (NL, 2)
-    e = endpoints[:, 1]
+    s = endpoints[..., 0, :]  # (..., NL, 2)
+    e = endpoints[..., 1, :]
     d = e - s
     length = torch.sqrt((d**2).sum(-1, keepdim=True)) + 1e-6
-    d = d / length                      # unit along-line dir (NL, 2)
-    n = torch.stack([-d[:, 1], d[:, 0]], -1)  # unit normal
+    d = d / length                      # unit along-line dir (..., NL, 2)
+    n = torch.stack([-d[..., 1], d[..., 0]], -1)  # unit normal
 
     ts = (torch.arange(_S, device=dev, dtype=torch.float32) + 0.5) / _S  # (S,)
     stride = bw / rpb
     offs = ((torch.arange(rows, device=dev, dtype=torch.float32) + 0.5) * stride
             - (nb * bw) / 2.0)  # (rows,)
 
-    # sample positions: (NL, S, rows, 2)
-    base = s[:, None, :] + ts[None, :, None] * (e - s)[:, None, :]
-    pos = base[:, :, None, :] + offs[None, None, :, None] * n[:, None, None, :]
+    # sample positions: (..., NL, S, rows, 2)
+    base = s[..., :, None, :] + ts[None, :, None] * (e - s)[..., :, None, :]
+    pos = base[..., :, :, None, :] + offs[None, None, :, None] * n[..., :, None, None, :]
     x = pos[..., 0]
     y = pos[..., 1]
-    sg_x = _sample_nearest(gx, x, y)  # (NL, S, rows)
+    sg_x = _sample_nearest(gx, x, y)  # (..., NL, S, rows)
     sg_y = _sample_nearest(gy, x, y)
-    g_par = sg_x * d[:, None, None, 0] + sg_y * d[:, None, None, 1]
-    g_perp = sg_x * n[:, None, None, 0] + sg_y * n[:, None, None, 1]
+    g_par = sg_x * d[..., :, None, None, 0] + sg_y * d[..., :, None, None, 1]
+    g_perp = sg_x * n[..., :, None, None, 0] + sg_y * n[..., :, None, None, 1]
 
     # global Gaussian row weighting (LBD paper f_g)
     sigma_g = 0.5 * (nb * bw - 1)
@@ -97,19 +101,21 @@ def lbd_descriptors(
         [g_perp.clamp(min=0.0), (-g_perp).clamp(min=0.0),
          g_par.clamp(min=0.0), (-g_par).clamp(min=0.0)],
         dim=-1,
-    )  # (NL, S, rows, 4)
+    )  # (..., NL, S, rows, 4)
     feats = feats * wg[None, None, :, None]
-    nl = endpoints.shape[0]
-    band = feats.reshape(nl, _S, nb, rpb, 4).sum(3)  # (NL, S, nb, 4)
+    lead_nl = endpoints.shape[:-2]
+    band = feats.reshape(lead_nl + (_S, nb, rpb, 4)).sum(-2)  # (..., NL, S, nb, 4)
 
-    mean = band.mean(1)                          # (NL, nb, 4)
-    std = torch.sqrt(((band - mean[:, None]) ** 2).mean(1))  # population std
-    # normalize mean-part and std-part separately (LBD paper)
-    mean = mean / (torch.linalg.vector_norm(mean.reshape(nl, -1), dim=1)[:, None, None] + 1e-6)
-    std = std / (torch.linalg.vector_norm(std.reshape(nl, -1), dim=1)[:, None, None] + 1e-6)
-    desc = torch.cat([mean, std], -1)            # (NL, nb, 8) in [0, 1]
+    mean = band.mean(-3)                         # (..., NL, nb, 4)
+    std = torch.sqrt(((band - mean[..., None, :, :]) ** 2).mean(-3))  # population std
+
+    def unit(x):  # normalize mean-part and std-part separately (LBD paper)
+        norm = torch.linalg.vector_norm(x.reshape(lead_nl + (-1,)), dim=-1)
+        return x / (norm[..., None, None] + 1e-6)
+
+    desc = torch.cat([unit(mean), unit(std)], -1)  # (..., NL, nb, 8) in [0, 1]
     q = torch.round(desc * _QSCALE).clamp(0, 255).to(torch.uint8)
-    return torch.where(valid[:, None], q.reshape(nl, LBD_DIM),
+    return torch.where(valid[..., None], q.reshape(lead_nl + (LBD_DIM,)),
                        torch.zeros((), dtype=torch.uint8, device=dev))
 
 

@@ -8,10 +8,15 @@ windows / octave ranges, (2) a gated Hamming best + second-best + argmin
 test, (4) an optional rotation-consistency histogram, (5) an optional
 one-target-one-query dedupe. Results equal the JAX package's
 ``MatchResult`` exactly.
+
+The gates, the search and its filters take optional leading batch axes (B
+sequences tracked in one step, one Hamming launch for all B searches); an
+unbatched call runs the same operations without them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -23,13 +28,13 @@ BIG = hamming.BIG
 
 
 class MatchResult(NamedTuple):
-    idx: torch.Tensor   # (Nq,) int32 target index or -1
-    dist: torch.Tensor  # (Nq,) int32 best distance (BIG where invalid)
-    ok: torch.Tensor    # (Nq,) bool
+    idx: torch.Tensor   # (..., Nq) int32 target index or -1
+    dist: torch.Tensor  # (..., Nq) int32 best distance (BIG where invalid)
+    ok: torch.Tensor    # (..., Nq) bool
 
     @property
     def count(self):
-        return self.ok.sum(dtype=torch.int32)
+        return self.ok.sum(-1, dtype=torch.int32)
 
 
 def _masked(ok, idx, dist) -> MatchResult:
@@ -38,15 +43,15 @@ def _masked(ok, idx, dist) -> MatchResult:
 
 
 def window_gate(
-    uv_proj: torch.Tensor,       # (Nq, 2) projected query positions
-    uv_tgt: torch.Tensor,        # (Nt, 2) target keypoint positions
-    radius: torch.Tensor,        # (Nq,) per-query search radius (px)
+    uv_proj: torch.Tensor,       # (..., Nq, 2) projected query positions
+    uv_tgt: torch.Tensor,        # (..., Nt, 2) target keypoint positions
+    radius: torch.Tensor,        # (..., Nq) per-query search radius (px)
 ) -> torch.Tensor:
     """|du| < r AND |dv| < r box gate (reference GetFeaturesInArea semantics,
-    Frame.cc:432-485). Returns (Nq, Nt) bool."""
-    du = (uv_proj[:, None, 0] - uv_tgt[None, :, 0]).abs()
-    dv = (uv_proj[:, None, 1] - uv_tgt[None, :, 1]).abs()
-    r = radius[:, None]
+    Frame.cc:432-485). Returns (..., Nq, Nt) bool."""
+    du = (uv_proj[..., :, None, 0] - uv_tgt[..., None, :, 0]).abs()
+    dv = (uv_proj[..., :, None, 1] - uv_tgt[..., None, :, 1]).abs()
+    r = radius[..., :, None]
     return (du < r) & (dv < r)
 
 
@@ -54,14 +59,14 @@ def octave_gate(oct_q: torch.Tensor, oct_t: torch.Tensor, min_off: int,
                 max_off: int) -> torch.Tensor:
     """Target octave within [oct_q + min_off, oct_q + max_off] — the
     forward/backward scale gating of SearchByProjection (ORBmatcher.cc:
-    1770-1780). Returns (Nq, Nt) bool."""
-    d = oct_t[None, :] - oct_q[:, None]
+    1770-1780). Returns (..., Nq, Nt) bool."""
+    d = oct_t[..., None, :] - oct_q[..., :, None]
     return (d >= min_off) & (d <= max_off)
 
 
 def best_matches(
-    dist: torch.Tensor,           # (Nq, Nt) int32
-    gate: torch.Tensor,           # (Nq, Nt) bool
+    dist: torch.Tensor,           # (..., Nq, Nt) int32
+    gate: torch.Tensor,           # (..., Nq, Nt) bool
     max_dist: int,
     nn_ratio: float | None = None,
 ) -> MatchResult:
@@ -69,45 +74,50 @@ def best_matches(
     Plain tensor ops: the line matcher's path (its distances are LBD)."""
     big = torch.full((), BIG, dtype=dist.dtype, device=dist.device)
     masked = torch.where(gate, dist, big)
-    best, best_idx = masked.min(1)
+    best, best_idx = masked.min(-1)
     best_idx = best_idx.to(torch.int32)
     ok = best <= max_dist
     if nn_ratio is not None:
-        cols = torch.arange(masked.shape[1], device=dist.device)
-        second = torch.where(cols[None, :] == best_idx[:, None], big, masked).amin(1)
+        cols = torch.arange(masked.shape[-1], device=dist.device)
+        second = torch.where(cols == best_idx[..., :, None], big, masked).amin(-1)
         ok = ok & (best.float() < nn_ratio * second.float())
     return _masked(ok, best_idx, best)
 
 
 def rotation_consistency(
-    angle_q: torch.Tensor,   # (Nq,) degrees
-    angle_t: torch.Tensor,   # (Nt,) degrees
+    angle_q: torch.Tensor,   # (..., Nq) degrees
+    angle_t: torch.Tensor,   # (..., Nt) degrees
     m: MatchResult,
     histo_length: int = 30,
     keep_top: int = 3,
 ) -> MatchResult:
     """Keep only matches whose angle difference falls in the top-``keep_top``
     histogram bins (ORBmatcher.cc rotation histogram, :2035-2081)."""
-    rot = angle_q - angle_t[m.idx.long().clamp(min=0)]
+    rot = angle_q - angle_t.gather(-1, m.idx.long().clamp(min=0))
     rot = torch.where(rot < 0, rot + 360.0, rot)
     binw = 360.0 / histo_length
     bins = (rot / binw).to(torch.int64).clamp(0, histo_length - 1)
-    counts = torch.zeros(histo_length, dtype=torch.int32, device=rot.device)
-    counts = counts.index_add_(0, bins, m.ok.to(torch.int32))
+    # one histogram per search of the batch
+    lead = bins.shape[:-1]
+    base = torch.arange(math.prod(lead), device=rot.device).reshape(lead + (1,))
+    counts = torch.zeros(math.prod(lead) * histo_length, dtype=torch.int32, device=rot.device)
+    counts = counts.index_add_(0, (base * histo_length + bins).reshape(-1),
+                               m.ok.to(torch.int32).reshape(-1)).reshape(lead + (histo_length,))
     top_vals, top_idx = torch.sort(counts, descending=True, stable=True)
     # reference ind3 rule: drop 3rd (and 2nd) bin if much smaller than best
-    keep2 = top_vals[1].float() >= 0.1 * top_vals[0].float()
-    keep3 = top_vals[2].float() >= 0.1 * top_vals[0].float()
-    in_top = (bins == top_idx[0]) | (keep2 & (bins == top_idx[1])) | (
-        keep3 & (bins == top_idx[2])
+    keep2 = top_vals[..., 1:2].float() >= 0.1 * top_vals[..., 0:1].float()
+    keep3 = top_vals[..., 2:3].float() >= 0.1 * top_vals[..., 0:1].float()
+    in_top = (bins == top_idx[..., 0:1]) | (keep2 & (bins == top_idx[..., 1:2])) | (
+        keep3 & (bins == top_idx[..., 2:3])
     )
     return _masked(m.ok & in_top, m.idx, m.dist)
 
 
 def dedupe_targets(m: MatchResult, n_targets: int) -> MatchResult:
     """Enforce one query per target, keeping the lowest distance (the
-    replace-if-better rule of e.g. ORBmatcher.cc:1846-1862)."""
-    nq = m.idx.shape[0]
+    replace-if-better rule of e.g. ORBmatcher.cc:1846-1862), per search of
+    the batch."""
+    nq = m.idx.shape[-1]
     dev = m.idx.device
     qid = torch.arange(nq, dtype=torch.int64, device=dev)
     # composite key makes the winner unique even on distance ties
@@ -115,10 +125,11 @@ def dedupe_targets(m: MatchResult, n_targets: int) -> MatchResult:
     key = d * nq + qid
     sentinel = 511 * nq + nq  # larger than any valid key
     tgt = m.idx.long().clamp(0, n_targets - 1)
-    best_key = torch.full((n_targets,), sentinel, dtype=torch.int64, device=dev)
+    best_key = torch.full(m.idx.shape[:-1] + (n_targets,), sentinel, dtype=torch.int64,
+                          device=dev)
     best_key = best_key.scatter_reduce(
-        0, tgt, torch.where(m.ok, key, torch.full_like(key, sentinel)), "amin")
-    return _masked(m.ok & (best_key[tgt] == key), m.idx, m.dist)
+        -1, tgt, torch.where(m.ok, key, torch.full_like(key, sentinel)), "amin")
+    return _masked(m.ok & (best_key.gather(-1, tgt) == key), m.idx, m.dist)
 
 
 def match_descriptors(
@@ -132,7 +143,9 @@ def match_descriptors(
     histo_length: int = 30,
     dedupe: bool = True,
 ) -> MatchResult:
-    """One-stop search: gated Hamming top-2 + ratio + rotation + dedupe."""
+    """One-stop search: gated Hamming top-2 + ratio + rotation + dedupe.
+    Leading axes of the queries, targets and gate are a batch of searches,
+    one Hamming launch for all."""
     best, idx, second = hamming.hamming_top2(desc_q, desc_t, gate)
     ok = best <= max_dist
     if nn_ratio is not None:
@@ -141,7 +154,7 @@ def match_descriptors(
     if angle_q is not None and angle_t is not None:
         m = rotation_consistency(angle_q, angle_t, m, histo_length)
     if dedupe:
-        m = dedupe_targets(m, desc_t.shape[0])
+        m = dedupe_targets(m, desc_t.shape[-2])
     return m
 
 

@@ -10,7 +10,10 @@ intensity-centroid orientation (:77-105), 7x7 Gaussian blur and the
 Descriptors are OpenCV's ORB byte layout (same pattern, same rounding) and
 bit-identical to the JAX package's on identical keypoints and angles. The
 FAST score+NMS of all levels is one ``fast.fast_score_nms_levels`` call, one
-launch of the CUDA kernel on CUDA tensors.
+launch of the CUDA kernel on CUDA tensors. Every function takes optional
+leading batch axes on the image (B sequences tracked in one step: one FAST
+launch for all B pyramids); an unbatched call runs the same operations
+without them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from ..config import OrbConfig
 from . import fast, image
+from .batch import each, pixels_at, rowwise
 
 HALF_PATCH = 15
 
@@ -47,7 +51,8 @@ def _umax_table() -> np.ndarray:
 
 
 class OrbFeatures(NamedTuple):
-    """Padded per-frame keypoint arrays (level-0 pixel coordinates)."""
+    """Padded per-frame keypoint arrays (level-0 pixel coordinates); with a
+    batch of images every field has the batch's leading axes."""
 
     xy: torch.Tensor        # (N, 2) float32, raw (distorted) image coords
     response: torch.Tensor  # (N,) float32
@@ -58,7 +63,7 @@ class OrbFeatures(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.xy.shape[0]
+        return self.xy.shape[-2]
 
 
 def _per_level_budget(cfg: OrbConfig) -> list[int]:
@@ -76,6 +81,10 @@ def _per_level_budget(cfg: OrbConfig) -> list[int]:
     return budget
 
 
+def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x, dim=-1)
+
+
 def ic_moment_maps(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense intensity-centroid moment maps (m10, m01) over the whole image.
 
@@ -85,31 +94,32 @@ def ic_moment_maps(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         m01(y,x) = sum_v  v * S(y+v, x; d),   d = umax[|v|]
 
     where S / Sx are width-(2d+1) windowed sums of I and x*I, O(1) per pixel
-    via cumsum differences.
+    via cumsum differences. ``img`` is (..., H, W).
     """
-    h, w = img.shape
+    h, w = img.shape[-2:]
     umax = _umax_table()
     r = HALF_PATCH
     # pad x for window reads, y for row shifts
     xpad = torch.nn.functional.pad(img, (r + 1, r, r, r))
     xs = torch.arange(-(r + 1), w + r, dtype=torch.float32, device=img.device)
-    cum = torch.cumsum(xpad, dim=1)
-    cumx = torch.cumsum(xpad * xs[None, :], dim=1)
+    # each image alone: on the card a batch's float cumsum sums in another order
+    cum = each(_cumsum_rows, img.shape[:-2], xpad)
+    cumx = each(_cumsum_rows, img.shape[:-2], xpad * xs[None, :])
 
     def winsum(c, d):
         # window [x-d, x+d] of the original image, for all x in [0, w)
-        return c[:, r + 1 + d: r + 1 + d + w] - c[:, r - d: r - d + w]
+        return c[..., :, r + 1 + d: r + 1 + d + w] - c[..., :, r - d: r - d + w]
 
     x_coord = torch.arange(w, dtype=torch.float32, device=img.device)[None, :]
     uniq = sorted(set(int(v) for v in umax))
-    S = {d: winsum(cum, d) for d in uniq}          # (h+2r, w)
+    S = {d: winsum(cum, d) for d in uniq}          # (..., h+2r, w)
     SxI = {d: winsum(cumx, d) for d in uniq}
-    m10 = torch.zeros((h, w), dtype=torch.float32, device=img.device)
-    m01 = torch.zeros((h, w), dtype=torch.float32, device=img.device)
+    m10 = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+    m01 = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
     for v in range(-r, r + 1):
         d = int(umax[abs(v)])
-        s_row = S[d][v + r: v + r + h]
-        sx_row = SxI[d][v + r: v + r + h]
+        s_row = S[d][..., v + r: v + r + h, :]
+        sx_row = SxI[d][..., v + r: v + r + h, :]
         m10 = m10 + (sx_row - x_coord * s_row)
         m01 = m01 + float(v) * s_row
     return m10, m01
@@ -117,12 +127,11 @@ def ic_moment_maps(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def ic_angles(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation (degrees) for keypoints at integer
-    (ys, xs) on ``img``."""
+    (ys, xs) (..., N) on ``img`` (..., H, W)."""
     m10, m01 = ic_moment_maps(img)
-    h, w = img.shape
-    yc = ys.long().clamp(0, h - 1)
-    xc = xs.long().clamp(0, w - 1)
-    ang = torch.atan2(m01[yc, xc], m10[yc, xc]) * np.float32(180.0 / np.pi)
+    h, w = img.shape[-2:]
+    at = ys.long().clamp(0, h - 1) * w + xs.long().clamp(0, w - 1)
+    ang = rowwise(torch.atan2, pixels_at(m01, at), pixels_at(m10, at)) * np.float32(180.0 / np.pi)
     return torch.where(ang < 0, ang + 360.0, ang)
 
 
@@ -130,40 +139,42 @@ def _rotated_offsets(angles_deg: torch.Tensor):
     """OpenCV GET_VALUE rotation: x' = round(px·a − py·b), y' = round(px·b +
     py·a) for every pattern point (ORBextractor.cc:108-144)."""
     theta = angles_deg * np.float32(np.pi / 180.0)
-    a, b = torch.cos(theta), torch.sin(theta)  # (N,)
+    a, b = rowwise(torch.cos, theta), rowwise(torch.sin, theta)  # (..., N)
     pat = torch.as_tensor(_PATTERN, dtype=torch.float32, device=angles_deg.device)
     px, py = pat[:, 0], pat[:, 1]  # (512,)
-    rx = torch.round(px[None, :] * a[:, None] - py[None, :] * b[:, None]).long()
-    ry = torch.round(px[None, :] * b[:, None] + py[None, :] * a[:, None]).long()
+    rx = torch.round(px * a[..., None] - py * b[..., None]).long()
+    ry = torch.round(px * b[..., None] + py * a[..., None]).long()
     return rx, ry
 
 
 def _pack_bits(vals: torch.Tensor) -> torch.Tensor:
-    """(N, 512) sampled values → (N, 32) uint8, OpenCV byte layout: byte j
-    bit b (LSB-first) encodes pattern pair 8j+b; bit set iff I(p1) < I(p2)."""
-    bits = (vals[:, 0::2] < vals[:, 1::2]).to(torch.int32)  # (N, 256)
+    """(..., N, 512) sampled values → (..., N, 32) uint8, OpenCV byte layout:
+    byte j bit b (LSB-first) encodes pattern pair 8j+b; bit set iff
+    I(p1) < I(p2)."""
+    bits = (vals[..., 0::2] < vals[..., 1::2]).to(torch.int32)  # (..., N, 256)
     shifts = torch.arange(8, dtype=torch.int32, device=vals.device)
-    return (bits.reshape(-1, 32, 8) << shifts).sum(-1).to(torch.uint8)
+    return (bits.reshape(bits.shape[:-1] + (32, 8)) << shifts).sum(-1).to(torch.uint8)
 
 
 def brief_descriptors(blurred: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                       angles_deg: torch.Tensor) -> torch.Tensor:
     """Rotated-BRIEF 256-bit descriptors (OpenCV-compatible bytes), by a
-    direct per-sample gather."""
-    h, w = blurred.shape
+    direct per-sample gather; ``blurred`` (..., H, W), keypoints (..., N)."""
+    h, w = blurred.shape[-2:]
     rx, ry = _rotated_offsets(angles_deg)
-    yy = (ys.long()[:, None] + ry).clamp(0, h - 1)
-    xx = (xs.long()[:, None] + rx).clamp(0, w - 1)
-    vals = blurred.reshape(-1)[yy * w + xx]  # (N, 512)
-    return _pack_bits(vals)
+    yy = (ys.long()[..., None] + ry).clamp(0, h - 1)
+    xx = (xs.long()[..., None] + rx).clamp(0, w - 1)
+    return _pack_bits(pixels_at(blurred, yy * w + xx))  # values (..., N, 512)
 
 
 def extract_orb(img: torch.Tensor, cfg: OrbConfig) -> OrbFeatures:
-    """Full ORB extraction for one grayscale frame (float32, 0..255).
+    """Full ORB extraction for one grayscale frame (float32, 0..255), or a
+    batch of frames (..., H, W).
 
     Returns fixed-capacity ``OrbFeatures`` (cfg.max_keypoints rows).
     """
     img = img.float()
+    lead = img.shape[:-2]
     levels = image.build_pyramid(img, cfg.n_levels, cfg.scale_factor)
     budget = _per_level_budget(cfg)
     n = cfg.max_keypoints
@@ -191,18 +202,24 @@ def extract_orb(img: torch.Tensor, cfg: OrbConfig) -> OrbFeatures:
         xs_all.append(xs.float() * s)
         ys_all.append(ys.float() * s)
         resp_all.append(resp)
-        oct_all.append(torch.full((budget[l],), l, dtype=torch.int32, device=img.device))
+        oct_all.append(torch.full(lead + (budget[l],), l, dtype=torch.int32,
+                                  device=img.device))
         ang_all.append(ang)
         desc_all.append(desc)
         valid_all.append(valid)
 
-    def cat_pad(parts, value=0):
-        x = torch.cat(parts)
-        return torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), value)])
+    # the keypoint axis follows the batch's leading axes
+    kd = len(lead)
 
-    xy = torch.stack([torch.cat(xs_all), torch.cat(ys_all)], -1)
+    def cat_pad(parts, value=0):
+        x = torch.cat(parts, kd)
+        shape = list(x.shape)
+        shape[kd] = pad
+        return torch.cat([x, x.new_full(shape, value)], kd)
+
+    xy = torch.stack([torch.cat(xs_all, kd), torch.cat(ys_all, kd)], -1)
     return OrbFeatures(
-        xy=torch.cat([xy, xy.new_zeros((pad, 2))]),
+        xy=cat_pad([xy]),
         response=cat_pad(resp_all),
         octave=cat_pad(oct_all),
         angle=cat_pad(ang_all),

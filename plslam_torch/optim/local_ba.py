@@ -13,10 +13,13 @@ Per iteration, on fixed padded shapes:
   xi = 0 and an additive landmark step (the derivatives the JAX package
   takes with forward-mode autodiff; ``tests/test_torch_local_ba.py`` holds
   them against ``torch.func.jacfwd`` of this module's residuals);
-- block accumulation with ``index_add_``: U (6x6 per camera), V (3x3 per
-  point, 6x6 per line), A (camera x landmark). On CUDA ``index_add_`` sums
-  with atomics, in an order that changes from run to run, so a BA result on
-  the card is not bit-reproducible;
+- block accumulation with ``index_put_(accumulate=True)``: U (6x6 per
+  camera), V (3x3 per point, 6x6 per line), A (camera x landmark). On CUDA
+  it sorts the indices and sums each block's terms in that order, so a BA
+  result on the card is reproducible (``index_add_`` sums with atomics, in
+  an order that changes from run to run; a tracker beside its mapper could
+  then not be compared with the same tracker run again); on the CPU both
+  sum in index order;
 - the Schur complement of every landmark block as one dense (6C, 6C)
   system (C <= 64 here), solved with ``torch.linalg.solve_ex``, then
   landmark back-substitution;
@@ -242,9 +245,14 @@ def _robust_cost(cam, prob, cam_R, cam_t, pt_xyz, ln_ep, in_pt, in_ln, use_robus
     return c1 + c2
 
 
+def _add_at(acc, idx, blocks):
+    """acc[idx[i]] += blocks[i], in a fixed order on every device."""
+    return acc.index_put_((idx,), blocks, accumulate=True)
+
+
 def _block_sum(n, idx, blocks):
-    return torch.zeros((n,) + blocks.shape[1:], dtype=blocks.dtype,
-                       device=blocks.device).index_add_(0, idx, blocks)
+    return _add_at(torch.zeros((n,) + blocks.shape[1:], dtype=blocks.dtype,
+                               device=blocks.device), idx, blocks)
 
 
 def _damp(M, lam, eps):
@@ -295,9 +303,9 @@ def _lm_iteration(cam, prob, state, use_robust):
               else torch.ones_like(chil))
     wl = (prob.lobs_w * wl_rob * (in_ln & prob.lobs_valid))[:, None, None]
     JclW, JlW = Jcl * wl, Jl * wl
-    U = U.index_add_(0, prob.lobs_cam, JclW.mT @ Jcl)
+    U = _add_at(U, prob.lobs_cam, JclW.mT @ Jcl)
     Vl = _block_sum(L, prob.lobs_ln, JlW.mT @ Jl)
-    bc = bc.index_add_(0, prob.lobs_cam, -(JclW.mT @ rl[..., None])[..., 0])
+    bc = _add_at(bc, prob.lobs_cam, -(JclW.mT @ rl[..., None])[..., 0])
     bl = _block_sum(L, prob.lobs_ln, -(JlW.mT @ rl[..., None])[..., 0])
     Al = _block_sum(L * C, prob.lobs_ln * C + prob.lobs_cam, JclW.mT @ Jl).view(L, C, 6, 6)
 

@@ -81,6 +81,19 @@ def test_system_slice_modules_are_covered(name):
     assert not re.search(r"^(import|from)\s+(cv2|matplotlib)\b", open(path).read(), re.M)
 
 
+PARALLEL_SLICE = ("parallel", "parallel.multiseq")
+
+
+@pytest.mark.parametrize("name", PARALLEL_SLICE)
+def test_parallel_slice_modules_are_covered(name):
+    """The batched multi-sequence slice's modules are among those imported
+    above and searched below."""
+    assert "plslam_torch." + name in set(_modules())
+    path = os.path.join(PKG, *name.split("."))
+    path = os.path.join(path, "__init__.py") if os.path.isdir(path) else path + ".py"
+    assert path in set(_sources())
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:

@@ -91,6 +91,20 @@ def test_fast_pretest_at_threshold(dev, th):
     assert (centres[[1, 3]] == th + 1).all()
 
 
+@pytest.mark.parametrize("B", [1, 4])
+def test_fast_levels_batch_one_launch(dev, B):
+    """B images' pyramids (each level (B, H, W)) in ONE launch equal the
+    plain version image by image, and the images' own launches."""
+    rng = np.random.default_rng(B)
+    levels = [torch.as_tensor(rng.integers(0, 256, (B,) + s).astype(np.float32), device=dev)
+              for s in PYRAMID]
+    got = _check_levels(levels, 7.0, 1)
+    for b in range(B):
+        alone = fast.fast_score_nms_levels([x[b] for x in levels], 7.0)
+        for g, a in zip(got, alone):
+            torch.testing.assert_close(g[b], a, rtol=0, atol=0)
+
+
 def test_fast_kernel_rejects_bad_input(dev):
     with pytest.raises(ValueError):
         fast.fast_score_nms(torch.zeros(8, 8, dtype=torch.float64, device=dev), 7.0)
@@ -230,6 +244,42 @@ def test_hamming_batched_equals_plain(dev, B, density):
     if B == 1:
         for a, w in zip(got, hamming.hamming_top2(q, t[0], gate[0])):
             torch.testing.assert_close(a[0], w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("density", ["windowed", "dense"])
+def test_hamming_per_problem_queries(dev, B, density):
+    """B problems with their own queries, targets and gate (B sequences
+    tracked in one step) in ONE launch, through ``hamming_top2`` with a
+    leading axis: equal to the plain version and to each problem alone. Each
+    problem's twins sit at its own columns, so a wrong query stride shows as
+    a wrong idx."""
+    n, m = 8192 if density == "windowed" else 1000, 1024
+    rng = np.random.default_rng(7 + B)
+    q = torch.as_tensor(rng.integers(0, 256, (B, n, 32), dtype=np.uint8), device=dev)
+    t = torch.as_tensor(rng.integers(0, 256, (B, m, 32), dtype=np.uint8), device=dev)
+    for b in range(B):
+        t[b, 100 + 3 * b:120 + 3 * b] = q[b, :20]
+    if density == "windowed":
+        gate = torch.as_tensor(rng.random((B, n, m)) < 0.01, device=dev)
+    else:
+        gate = torch.ones(B, n, m, dtype=torch.bool, device=dev)
+    for b in range(B):
+        gate[b, :20, 100 + 3 * b:120 + 3 * b] = True
+    before = hamming.hamming_top2.launches
+    got = hamming.hamming_top2(q, t, gate)
+    assert hamming.hamming_top2.launches == before + 1
+    want = hamming.hamming_top2_plain(q, t, gate)
+    for a, w in zip(got, want):
+        assert a.shape == (B, n)
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    idx = got[1].cpu().numpy()
+    assert (idx[:, :20] == 100 + 3 * np.arange(B)[:, None] + np.arange(20)[None]).all()
+    with pytest.raises(ValueError):  # the shared-query launch takes one query set
+        hamming.hamming_top2_batched(q, t, gate)
+    for b in range(B):
+        for a, w in zip(got, hamming.hamming_top2(q[b], t[b], gate[b])):
+            torch.testing.assert_close(a[b], w, rtol=0, atol=0)
 
 
 def test_hamming_batched_rejects_bad_input(dev):
