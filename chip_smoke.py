@@ -106,9 +106,31 @@ Phases, one line each:
                sequence), exact against their plain versions, timed.
                `python3 chip_smoke.py --only multiseq` runs the build and
                this phase alone.
+ 10. distributed — the landmark-sharded global BA (plslam_torch.parallel)
+               in one process with 4 shards on the card: (a) the dry run's
+               four phases (parallel/dryrun.py); (b) the whole-map GBA of a
+               256-keyframe make_synthetic_ba_map (16,384 points, 1000
+               observations a keyframe), gathered as the loop closer gathers
+               it, solved by distributed_bundle_adjust, by the single-device
+               PCG and through LocalMapper.run_local_ba with a 4-shard mesh
+               ("distributed"): mean keyframe error < 1 cm and below half
+               the initial one, within 5 mm of PCG, an abort after 2 steps
+               stops after 2; (c) two gloo ranks on the same card (2 shards
+               each, file:// rendezvous) reduce 1..4 to 10 and take one
+               distributed_cg_step equal to the in-process one at 1e-5
+               relative. `--only distributed` runs the build and this phase.
+ 11. loader  — the room's 150 frames written as a TUM directory with
+               utils/png_io.py (8-bit RGB, 16-bit depth, the five PNG
+               filters in turn); every frame of plslam_torch.native's
+               TumLoader (4 decode threads) bit for bit against the plain
+               numpy + zlib decode; run_tum --native-loader over the
+               directory (150 rows, state OK, ATE < 1.2 / 3.0 cm, both
+               kernels launched); run_kitti over 5 stereo pairs written the
+               same way. `--only loader` runs the build, the render and
+               this phase.
 Then a JSON line of per-kernel numbers (launches: the mapping phase,
-which is bench.py's path; the main, stereo, mono, reloc, loop, system and
-multiseq phases' beside them), the
+which is bench.py's path; the main, stereo, mono, reloc, loop, system,
+multiseq and loader phases' beside them), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -2226,8 +2248,364 @@ def multiseq_and_kernels(cfg, dev, kernels):
         kernels[k]["multiseq_shape"] = rec
 
 
-def main(argv) -> int:
+# ---------------------------------------------------------------- distributed
+DIST_SHARDS = 4
+# the whole-map GBA at the size of a long TUM sequence: bench.py's camera,
+# cfg.orb.max_keypoints observations a keyframe, inside MapCapacity
+DIST_MAP = dict(n_kf=256, n_pts=16384, obs_per_kf=1000, seed=1)
+DIST_ERR_M = 0.01      # tests/test_parallel.py's bars: mean keyframe error,
+DIST_VS_PCG_M = 0.005  # distributed against the single-device solver (max)
+
+DIST_WORKER = r"""
+import sys
+import numpy as np
+import torch
+from plslam_torch.geometry.projection import Camera
+from plslam_torch.parallel import ba, mesh
+
+rank, rdv, npz, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+assert mesh.initialize_distributed(init_method="file://" + rdv, world_size=2, rank=rank,
+                                   timeout_s=120) == 2
+assert torch.distributed.get_backend() == "gloo"
+dev = torch.device("cuda", 0)
+m = mesh.make_ba_mesh([dev] * 2)
+assert (m.rank, m.world, m.n_shards) == (rank, 2, 4)
+parts = [torch.stack([torch.full((4, 6, 6), 2.0 * rank + i + 1, device=dev) for i in range(2)])]
+assert bool((m.psum(parts) == 10.0).all())
+d = np.load(npz)
+prob = ba.ShardedBA(*(d[f] for f in ba.ShardedBA._fields))
+cam = Camera(*d["cam"].tolist()[:10], int(d["cam"][10]), int(d["cam"][11]))
+R, t, X = ba.distributed_cg_step(cam, prob, m, lam=1e-3, cg_iters=int(d["cg_iters"]))
+np.savez(out % rank, R=R.cpu().numpy(), t=t.cpu().numpy(), X=X.cpu().numpy())
+torch.distributed.destroy_process_group()
+print("rank", rank, "ok", flush=True)
+"""
+
+
+def _two_rank_step(cfg, sharded, ref, cg_iters, tmp):
+    """Phase distributed (c): two gloo ranks on the same card, 2 shards each
+    (a file:// rendezvous, 120 s), reduce the constants of the 4 global
+    shards and take one distributed_cg_step of (b)'s problem, which must
+    equal the in-process 4-shard step ``ref`` at 1e-5 relative."""
+    import os
+
+    npz = tmp / "problem.npz"
+    cam = np.array(list(cfg.camera), np.float64)
+    np.savez(npz, cam=cam, cg_iters=cg_iters, **dict(zip(sharded._fields, sharded)))
+    script = tmp / "worker.py"
+    script.write_text(DIST_WORKER)
+    out = str(tmp / "out%d.npz")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(tmp / "rdv"), str(npz),
+                               out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+                              text=True) for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=180)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    seconds = time.perf_counter() - t0
+    for r, (p, log_) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0 and f"rank {r} ok" in log_, f"rank {r}:\n{log_[-3000:]}")
+    worst = 0.0
+    for r in (0, 1):
+        d = np.load(out % r)
+        for a, b in ((ref[0], d["R"]), (ref[1], d["t"]), (ref[2][2 * r:2 * r + 2], d["X"])):
+            a = a.cpu().numpy()
+            worst = max(worst, float(np.abs(a - b).max() / np.abs(a).max()))
+    require(worst <= 1e-5, f"two-rank step against the in-process step: {worst:.3e} relative")
+    return dict(ranks=2, backend="gloo", shards_per_rank=2, psum_1_to_4=10.0,
+                step_max_rel_diff=worst, seconds=seconds)
+
+
+def distributed_phase(cfg, dev):
+    """Phase distributed: (a) the dry run's four phases on 4 shards of the
+    card; (b) the whole-map GBA of a 256-keyframe make_synthetic_ba_map,
+    gathered as the loop closer gathers it, solved by
+    distributed_bundle_adjust on 4 shards of the card, by the single-device
+    PCG and through the engine route (LocalMapper.run_local_ba with a
+    4-shard mesh), with an abort after 2 steps; (c) two gloo ranks on the
+    card against the in-process step."""
+    import tempfile
+
     import torch
+
+    from plslam_torch.models.local_mapping import LocalMapper
+    from plslam_torch.models.loop_closing import global_ba_caps
+    from plslam_torch.optim import ba_cg
+    from plslam_torch.parallel import ba as pba
+    from plslam_torch.parallel import dryrun
+    from plslam_torch.parallel.mesh import make_ba_mesh
+    from plslam_torch.utils.synthetic import make_synthetic_ba_map
+
+    res = {}
+    t0 = time.perf_counter()
+    res["dry_run"] = dryrun.run(DIST_SHARDS, device=dev)
+    res["dry_run"]["wall_s"] = time.perf_counter() - t0
+
+    mc = cfg.mapping
+    t0 = time.perf_counter()
+    m, gt, _ = make_synthetic_ba_map(cfg, device=dev, **DIST_MAP)
+    caps = global_ba_caps(m)
+    g = LocalMapper(cfg, m).gather_ba(0, **caps)
+    require(g is not None, "no global BA problem")
+    nk = DIST_MAP["n_kf"]
+    gt_c = np.array([-(R.T @ t) for R, t in gt])
+
+    def kf_err(R, t):
+        R, t = np.asarray(R)[:nk], np.asarray(t)[:nk]
+        return np.linalg.norm(-np.einsum("kji,kj->ki", R, t) - gt_c, axis=1)
+
+    err0 = kf_err(g.prob.cam_R.cpu().numpy(), g.prob.cam_t.cpu().numpy())
+    mesh = make_ba_mesh([dev] * DIST_SHARDS)
+    sharded = pba.shard_problem(*(t.cpu().numpy() for t in (
+        g.prob.cam_R, g.prob.cam_t, g.prob.cam_fixed | ~g.prob.cam_valid, g.prob.pt_xyz,
+        g.prob.pt_valid, g.prob.obs_cam, g.prob.obs_pt, g.prob.obs_uv, g.prob.obs_ur,
+        g.prob.obs_w, g.prob.obs_valid)), n_shards=DIST_SHARDS)
+    res["problem"] = dict(keyframes=nk, cameras=int(g.prob.cam_R.shape[0]), points=len(g.pids),
+                          observations=len(g.oc), caps=caps, shards=DIST_SHARDS,
+                          points_per_shard=[int(v.sum()) for v in sharded.pt_valid],
+                          observations_per_shard=[int(v.sum()) for v in sharded.obs_valid],
+                          initial_kf_err_mean_cm=float(err0.mean()) * 100,
+                          build_s=time.perf_counter() - t0)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - s
+
+    calls = []
+    real_step = pba.distributed_cg_step
+
+    def counting_step(*a, **kw):
+        calls.append(1)
+        return real_step(*a, **kw)
+
+    pba.distributed_cg_step = counting_step
+    try:
+        (Rd, td, Xd, inl), sec_d = timed(lambda: pba.distributed_bundle_adjust(
+            cfg.camera, g.prob, mesh, iters=mc.distributed_ba_iters, cg_iters=mc.ba_cg_iters))
+        steps = len(calls)
+        calls.clear()
+        pba.distributed_bundle_adjust(cfg.camera, g.prob, mesh, iters=mc.distributed_ba_iters,
+                                      cg_iters=mc.ba_cg_iters,
+                                      should_abort=lambda: len(calls) >= 2)
+        aborted_after = len(calls)
+    finally:
+        pba.distributed_cg_step = real_step
+    require(aborted_after == 2, f"an abort after 2 steps stopped after {aborted_after}")
+    # the PCG on the observations alone: the gathered problem pads them to a
+    # power of two on camera 0 and point 0, whose weight-0 terms all sum into
+    # one slot of the sorted index_put_ (2.71 against 0.114 s an LM iteration
+    # with the padding spread, python -m plslam_torch.utils.profile_gba)
+    n_obs = len(g.oc)
+    trimmed = g.prob._replace(**{f: getattr(g.prob, f)[:n_obs] for f in (
+        "obs_cam", "obs_pt", "obs_uv", "obs_ur", "obs_w", "obs_valid")})
+    pcg, sec_p = timed(lambda: ba_cg.bundle_adjust_cg_stepped(
+        cfg.camera, trimmed, iters1=mc.local_ba_iters1, iters2=mc.local_ba_iters2,
+        cg_iters=mc.ba_cg_iters))
+    err_d = kf_err(Rd, td)
+    err_p = kf_err(pcg.cam_R.cpu().numpy(), pcg.cam_t.cpu().numpy())
+    c_d = -np.einsum("kji,kj->ki", Rd[:nk], td[:nk])
+    c_p = -np.einsum("kji,kj->ki", pcg.cam_R[:nk].cpu().numpy(), pcg.cam_t[:nk].cpu().numpy())
+    vs_pcg = float(np.linalg.norm(c_d - c_p, axis=1).max())
+    require(np.isfinite(Xd).all() and err_d.mean() < DIST_ERR_M
+            and err_d.mean() < 0.5 * err0.mean(),
+            f"distributed GBA: mean keyframe error {err_d.mean() * 100:.3f} cm, initial "
+            f"{err0.mean() * 100:.3f} cm")
+    require(vs_pcg < DIST_VS_PCG_M, f"distributed against PCG: {vs_pcg * 1e3:.3f} mm")
+    res["distributed"] = dict(seconds=sec_d, gn_steps=steps, cg_iters=steps * mc.ba_cg_iters,
+                              kf_err_mean_cm=float(err_d.mean()) * 100,
+                              kf_err_max_cm=float(err_d.max()) * 100,
+                              inliers=int(inl.sum()), vs_pcg_max_mm=vs_pcg * 1e3,
+                              abort_after_2_steps=aborted_after)
+    lm_iters = mc.local_ba_iters1 + mc.local_ba_iters2
+    res["pcg"] = dict(seconds=sec_p, lm_iters=lm_iters, cg_iters=lm_iters * mc.ba_cg_iters,
+                      kf_err_mean_cm=float(err_p.mean()) * 100)
+
+    # the engine route: run_local_ba on a fresh copy of the map, 4 shards
+    m2, _, _ = make_synthetic_ba_map(cfg, device=dev, **DIST_MAP)
+    mapper = LocalMapper(cfg, m2)
+    mapper.ba_mesh = mesh
+    solver, sec_e = timed(lambda: mapper.run_local_ba(0, **global_ba_caps(m2)))
+    require(solver == "distributed", f"run_local_ba took {solver}")
+    err_e = kf_err(m2.kf_R, m2.kf_t)
+    require(err_e.mean() < DIST_ERR_M, f"engine route: {err_e.mean() * 100:.3f} cm")
+    res["engine_route"] = dict(solver=solver, seconds=sec_e,
+                               kf_err_mean_cm=float(err_e.mean()) * 100)
+
+    ref = real_step(cfg.camera, sharded, mesh, lam=1e-3, cg_iters=mc.ba_cg_iters)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["two_ranks"] = _two_rank_step(cfg, sharded, ref, mc.ba_cg_iters, Path(tmp))
+    return res
+
+
+# --------------------------------------------------------------------- loader
+KITTI_PAIRS = 5
+
+
+def _check_loader_frames(loaded, rgb_paths, depth_paths, factor):
+    """Every frame TumLoader gave, bit for bit against the plain numpy + zlib
+    decode of the same files (utils.png_io.decode_plain), in order."""
+    from plslam_torch.utils.png_io import decode_plain
+
+    require(len(loaded) == len(rgb_paths), f"{len(loaded)} frames of {len(rgb_paths)}")
+    f32 = np.float32
+    inv = f32(1.0) / f32(factor)
+    for k, (rgb, d) in enumerate(zip(decode_plain(rgb_paths), decode_plain(depth_paths))):
+        c = rgb.astype(f32)
+        gray = f32(0.299) * c[..., 0] + f32(0.587) * c[..., 1] + f32(0.114) * c[..., 2]
+        g, dep, _ = loaded[k]
+        require(np.array_equal(g.view(np.int32), gray.view(np.int32)),
+                f"frame {k}: gray differs from the plain decode")
+        require(np.array_equal(dep.view(np.int32), (d[..., 0].astype(f32) * inv).view(np.int32)),
+                f"frame {k}: depth differs from the plain decode")
+
+
+def _kitti_run(cfg, dev, tmp):
+    """run_kitti over KITTI_PAIRS stereo pairs of the room written as 8-bit
+    gray PNGs with utils.png_io, read through the native decoder."""
+    import contextlib
+    import io
+
+    from plslam_torch.utils import run_kitti
+    from plslam_torch.utils.png_io import write_png
+    from plslam_torch.utils.synthetic import smooth_trajectory
+
+    cam = cfg.camera
+    base = np.array([cam.bf / cam.fx, 0, 0], np.float32)
+    poses = smooth_trajectory(2 * STEREO_FRAMES)[:KITTI_PAIRS]
+    imgs = render_jobs([(0, cam, R, t, None) for R, t in poses]
+                       + [(0, cam, R, t - base, None) for R, t in poses])
+    seq = tmp / "kitti"
+    for side in ("image_0", "image_1"):
+        (seq / side).mkdir(parents=True)
+    for i in range(KITTI_PAIRS):
+        for side, img in (("image_0", imgs[i]), ("image_1", imgs[KITTI_PAIRS + i])):
+            path = seq / side / f"{i:06d}.png"
+            write_png(path, img)
+            require(np.array_equal(run_kitti.load_gray(str(path)), img),
+                    f"{path.name}: decoded gray differs from the written image")
+    np.savetxt(seq / "times.txt", np.arange(KITTI_PAIRS) * 0.1)
+    yaml = tmp / "KITTI.yaml"
+    yaml.write_text("%YAML:1.0\n" + "".join(
+        f"Camera.{k}: {getattr(cam, k)}\n" for k in ("fx", "fy", "cx", "cy", "bf", "width",
+                                                     "height"))
+                    + "Camera.fps: 10.0\nThDepth: 35\n")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = run_kitti.main([str(yaml), str(seq), "--out", str(tmp / "kitti_out"),
+                             "--device", str(dev)])
+    require(rc == 0, f"run_kitti exited {rc}")
+    rows = np.loadtxt(tmp / "kitti_out" / "CameraTrajectory.txt", ndmin=2)
+    require(rows.shape == (KITTI_PAIRS, 12) and np.isfinite(rows).all(),
+            f"KITTI trajectory {rows.shape}")
+    return dict(pairs=KITTI_PAIRS, rows=len(rows), seconds=time.perf_counter() - t0)
+
+
+def loader_phase(cfg, dev, frames, poses):
+    """Phase loader: the room's frames written as a TUM directory (8-bit RGB
+    with equal channels, 16-bit depth x 5000, every row through one of the
+    five PNG filters in turn) with utils.png_io; every frame TumLoader
+    yields against the plain numpy + zlib decode, bit for bit; then
+    ``python -m plslam_torch.utils.run_tum --native-loader`` (its ``main``,
+    in this process, so that the launch counts are read) over the
+    directory, with the counts set to 0 just before; then run_kitti over
+    stereo pairs written the same way."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from plslam_torch.native import TumLoader
+    from plslam_torch.utils import run_tum, tum_io
+
+    factor = cfg.tracking.depth_map_factor
+    n = len(frames)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp_:
+        tmp = Path(tmp_)
+        seq = tmp / "seq"
+        t0 = time.perf_counter()
+        ts = np.arange(n) / 30.0
+        tum_io.write_sequence(str(seq), [g for g, _ in frames], [d for _, d in frames], ts,
+                              cfg.camera, factor)
+        res["write_s"] = time.perf_counter() - t0
+        assoc = tum_io.load_association(str(seq / "associate.txt"), str(seq))
+
+        t0 = time.perf_counter()
+        ld = TumLoader(str(seq / "associate.txt"), depth_factor=factor,
+                       width=cfg.camera.width, height=cfg.camera.height, n_threads=4)
+        loaded = list(ld)
+        ld.close()
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _check_loader_frames(loaded, assoc.rgb_paths, assoc.depth_paths, factor)
+        res["frames_exact"] = len(loaded)
+        res["plain_check_s"] = time.perf_counter() - t0
+        res["loader_fps_4_threads"] = n / decode_s
+        del loaded
+
+        out = tmp / "out"
+        log_ = io.StringIO()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log_):
+            rc = run_tum.main([str(seq / "settings.yaml"), str(seq / "associate.txt"),
+                               "--out", str(out), "--native-loader", "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        text = log_.getvalue()
+        require(rc == 0, f"run_tum exited {rc}:\n{text[-2000:]}")
+        require("final state:          1" in text, f"run_tum's final state:\n{text[-2000:]}")
+        fps = float(text.split("tracked fps:")[1].split()[0])
+        ets, pos, _ = tum_io.load_trajectory_tum(str(out / "CameraTrajectory.txt"))
+        require(len(ets) == n, f"{len(ets)} rows for {n} frames")
+        gt = np.array([-(R.T @ t) for R, t in poses])
+        rmse, mx = ate(pos[np.argsort(ets)], gt)
+        require(rmse < ATE_LIMITS_M[0] and mx < ATE_LIMITS_M[1],
+                f"run_tum ATE rmse {rmse:.4f} m max {mx:.4f} m")
+        require(launches["fast_score_nms"] > 0 and launches["hamming_top2"] > 0,
+                f"launches {launches}")
+        res["run_tum"] = dict(rows=len(ets), tracked_fps=fps, wall_s=wall, run_fps=n / wall,
+                              ate_rmse_cm=rmse * 100, ate_max_cm=mx * 100, launches=launches)
+        res["kitti"] = _kitti_run(cfg, dev, tmp)
+    return res
+
+
+def distributed_and_log(cfg, dev):
+    t0 = time.perf_counter()
+    res = distributed_phase(cfg, dev)
+    res["phase_s"] = time.perf_counter() - t0
+    log("phase distributed: ok, " + json.dumps(res))
+
+
+def loader_and_log(cfg, dev, frames, poses, kernels):
+    """Phase loader; its launch counts join the kernels' entries."""
+    t0 = time.perf_counter()
+    res = loader_phase(cfg, dev, frames, poses)
+    res["phase_s"] = time.perf_counter() - t0
+    log("phase loader: ok, " + json.dumps(res))
+    for k, name in enumerate(("fast_score_nms", "hamming_top2")):
+        kernels[k]["launches_loader_phase"] = res["run_tum"]["launches"][name]
+
+
+def main(argv) -> int:
+    import faulthandler
+
+    import torch
+
+    faulthandler.enable()  # a crash in native code prints every thread's stack
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2244,19 +2622,28 @@ def main(argv) -> int:
 
     t = cuda_build.build(verbose=True)
     log(f"phase build: ok, {t:.1f} s for {len(cuda_build.KERNELS)} kernels")
-    if argv[1:] == ["--only", "multiseq"]:  # a quick check of the one phase
+    only = argv[2] if len(argv) == 3 and argv[1] == "--only" else None
+    if argv[1:] and only not in ("multiseq", "distributed", "loader"):
+        print(f"chip_smoke: unknown arguments {argv[1:]}", file=sys.stderr)
+        return 2
+    if only == "multiseq":  # a quick check of the one phase
         kernels = [{}, {}]
         multiseq_and_kernels(cfg, dev, kernels)
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0
-    if argv[1:]:
-        print(f"chip_smoke: unknown arguments {argv[1:]}", file=sys.stderr)
-        return 2
+    if only == "distributed":
+        distributed_and_log(cfg, dev)
+        return 0
 
     t0 = time.perf_counter()
     poses = smooth_trajectory(2 * N_FRAMES)[:N_FRAMES]
     frames = render(cfg, 0, poses)
     log(f"rendered {N_FRAMES} frames 640x480 in {time.perf_counter() - t0:.1f} s")
+    if only == "loader":
+        kernels = [{}, {}]
+        loader_and_log(cfg, dev, frames, poses, kernels)
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return 0
 
     kernels = [check_fast(cfg, frames, dev), check_hamming(cfg, frames, dev)]
     kernels[1]["mapping_shapes"] = check_mapping_shapes(cfg, frames, poses, dev)
@@ -2311,6 +2698,8 @@ def main(argv) -> int:
     for k, name in enumerate(("fast_score_nms", "hamming_top2")):
         kernels[k]["launches_system_phase"] = sres["launches"][name]
     multiseq_and_kernels(cfg, dev, kernels)
+    distributed_and_log(cfg, dev)
+    loader_and_log(cfg, dev, frames, poses, kernels)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

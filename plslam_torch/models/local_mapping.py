@@ -17,7 +17,8 @@ Covers (LocalMapping.cc):
 - LocalBundleAdjustment (:119-121 -> Optimizer.cc:644): joint point+line
   local BA (optim.local_ba), dense Schur; the loop closer's global BA runs
   through the same gatherer and, past ``cfg.mapping.ba_dense_camera_cap``
-  cameras, the matrix-free PCG solver (optim.ba_cg);
+  cameras, the landmark-sharded solver (parallel.ba) when the mesh has
+  more than one shard, else the matrix-free PCG solver (optim.ba_cg);
 - KeyFrameCulling (:1224-1321).
 
 The map lock (``lock``, Map::mMutexMapUpdate) guards host map mutations
@@ -167,6 +168,9 @@ class LocalMapper:
         self.should_abort = None
         self.triangulator = triangulation.Triangulator(cfg, slam_map)
         self.fuse_passes = 0  # keyframes whose fusion pass ran
+        # landmark-shard mesh of the global BA past the dense cap; None:
+        # parallel.mesh.make_ba_mesh() (one shard per visible GPU)
+        self.ba_mesh = None
 
     @staticmethod
     def _bucket(n: int, lo: int, hi: int) -> int:
@@ -508,8 +512,9 @@ class LocalMapper:
         line landmarks live). The caps default to ``cfg.mapping``'s; the
         loop closer's global BA passes a window that covers every keyframe
         and caps that scale with the map, and ``max_kf`` bounds the global
-        set to its snapshot. Returns the solver that ran ("dense" or
-        "pcg"), or None when the problem has fewer than 20 observations."""
+        set to its snapshot. Returns the solver that ran ("dense", "pcg"
+        or "distributed"), or None when the problem has fewer than 20
+        observations."""
         g = self.gather_ba(kf, window, obs_cap, point_cap, line_cap, lobs_cap, max_kf)
         if g is None:
             return None
@@ -518,6 +523,8 @@ class LocalMapper:
         host = _to_host([res.cam_R, res.cam_t, res.pt_xyz, res.ln_ep, res.obs_inlier,
                          res.lobs_inlier])
         with self.lock:
+            if solver == "distributed":
+                self._transport_lines(g, host[0], host[1], host[3])
             self._write_back_ba(g, *host)
         return solver
 
@@ -636,25 +643,56 @@ class LocalMapper:
         return BAGather(prob, cams, cam_fixed, pids, lids, oc, op, lc, ll)
 
     def solve_ba(self, prob: local_ba.BAProblem):
-        """(result, solver) of the stepped LM on ``prob``: the dense Schur
-        solve up to ``cfg.mapping.ba_dense_camera_cap`` cameras, the
-        matrix-free PCG (``optim/ba_cg.py``) beyond. The landmark-sharded
-        solver that the JAX package takes past the cap when more than one
-        device is visible is not ported (ROADMAP.md Queue A item 17b)."""
+        """(result, solver) of the BA on ``prob``: the dense Schur solve up
+        to ``cfg.mapping.ba_dense_camera_cap`` cameras; beyond it, with
+        ``cfg.mapping.use_distributed_ba`` and more than one landmark shard
+        in the mesh (``self.ba_mesh``, else ``parallel.mesh.make_ba_mesh()``),
+        the landmark-sharded GBA (``parallel.ba``, points only: its result
+        carries the problem's line endpoints, which ``run_local_ba`` moves
+        with their reference keyframes); else the matrix-free PCG
+        (``optim/ba_cg.py``)."""
         mc = self.cfg.mapping
         C = prob.cam_R.shape[0]
         if C <= mc.ba_dense_camera_cap:
             return local_ba.bundle_adjust_stepped(
                 self.cfg.camera, prob, iters1=mc.local_ba_iters1, iters2=mc.local_ba_iters2,
                 should_abort=self.should_abort), "dense"
-        if mc.use_distributed_ba and prob.cam_R.is_cuda and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                f"BA over {C} cameras with {torch.cuda.device_count()} GPUs visible: the "
-                "distributed BA is ROADMAP.md Queue A item 17b (set "
-                "cfg.mapping.use_distributed_ba=False to take the PCG solver)")
+        if mc.use_distributed_ba:
+            from ..parallel import ba as pba
+            from ..parallel import mesh as pmesh
+
+            mesh = self.ba_mesh or pmesh.make_ba_mesh()
+            if mesh.n_shards > 1:
+                nR, nt, nxyz, inl = pba.distributed_bundle_adjust(
+                    self.cfg.camera, prob, mesh, iters=mc.distributed_ba_iters,
+                    cg_iters=mc.ba_cg_iters, should_abort=self.should_abort)
+                dev = prob.cam_R.device
+                up = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+                return local_ba.BAResult(
+                    up(nR), up(nt), up(nxyz), prob.ln_ep, up(inl), prob.lobs_valid,
+                    torch.tensor(float("nan"), device=dev)), "distributed"
         return ba_cg.bundle_adjust_cg_stepped(
             self.cfg.camera, prob, iters1=mc.local_ba_iters1, iters2=mc.local_ba_iters2,
             should_abort=self.should_abort, cg_iters=mc.ba_cg_iters), "pcg"
+
+    def _transport_lines(self, g: BAGather, nR, nt, nep):
+        """Move the line endpoints of a points-only solve rigidly with their
+        reference keyframe's pose update (the loop closer's landmark
+        transport). Caller holds the map lock."""
+        kl = len(g.lids)
+        if not kl:
+            return
+        cam_index = {c: i for i, c in enumerate(g.cams)}
+        ci = np.array([cam_index.get(int(r), -1) for r in self.map.ln_first_kf[g.lids]],
+                      np.int64)
+        mv = (ci >= 0) & ~g.cam_fixed[np.clip(ci, 0, None)]
+        if not mv.any():
+            return
+        c = ci[mv]
+        cam_R, cam_t, ep = _to_host([g.prob.cam_R, g.prob.cam_t, g.prob.ln_ep])
+        for i in (0, 1):
+            pc = np.einsum("nij,nj->ni", cam_R[c], ep[:kl][mv, i]) + cam_t[c]
+            nep[:kl][mv, i] = np.einsum("nji,nj->ni", nR[c], pc - nt[c])
 
     def _write_back_ba(self, g: BAGather, nR, nt, nxyz, nep, inl, linl):
         """A BA result (host arrays) back into the map: poses and landmarks,

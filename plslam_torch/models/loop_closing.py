@@ -120,12 +120,19 @@ def _pair_arrays(snap, ok, idx):
 
 def global_ba_caps(m: SlamMap) -> dict:
     """The global BA's window (every keyframe) and caps, which scale with
-    the map: the keywords of ``LocalMapper.run_local_ba``."""
-    point_cap = 1 << max(12, (max(m.n_points(), 1) - 1).bit_length())
-    line_cap = 1 << max(8, (max(m.n_lines(), 1) - 1).bit_length())
+    the map: the keywords of ``LocalMapper.run_local_ba``. The observation
+    caps also cover every observation the keyframes hold (the JAX package
+    caps them at 4 per landmark, which truncates a map whose landmarks are
+    seen more often: 156,653 observations of 16,384 points in 256
+    keyframes lost the later keyframes' observations)."""
+    pow2 = lambda n: 1 << (max(n, 1) - 1).bit_length()  # noqa: E731
+    point_cap = max(1 << 12, pow2(m.n_points()))
+    line_cap = max(1 << 8, pow2(m.n_lines()))
+    n_obs = int((m.kf_pt_idx[:m.n_kf] >= 0).sum())
+    n_lobs = int((m.kf_ln_idx[:m.n_kf] >= 0).sum())
     return dict(window=1 << max(8, (m.n_kf - 1).bit_length()), point_cap=point_cap,
-                obs_cap=max(65536, 4 * point_cap), line_cap=line_cap,
-                lobs_cap=max(4096, 4 * line_cap))
+                obs_cap=max(65536, 4 * point_cap, pow2(n_obs)), line_cap=line_cap,
+                lobs_cap=max(4096, 4 * line_cap, pow2(n_lobs)))
 
 
 def _pad_landmarks(m: SlamMap, pids, cap: int):
@@ -713,7 +720,7 @@ class LoopCloser:
         """Full-map BA (RunGlobalBundleAdjustment, LoopClosing.cc:972-1119)
         through the local mapper's gatherer, with a window over every
         keyframe and caps that scale with the map. Returns the solver that
-        ran ("dense" or "pcg"), or None."""
+        ran ("dense", "pcg" or "distributed"), or None."""
         if self.local_mapper is None:
             return None
         m = self.map

@@ -157,3 +157,91 @@ def smooth_trajectory(n_frames: int, amplitude: float = 0.6):
         t = -R @ c
         poses.append((R.astype(np.float32), t.astype(np.float32)))
     return poses
+
+
+def make_synthetic_ba_map(cfg, n_kf: int = 72, n_pts: int = 300,
+                          obs_per_kf: int = 96, noise: float = 0.5,
+                          pose_pert: float = 0.01, pt_pert: float = 0.02,
+                          seed: int = 0, device="cuda"):
+    """A SlamMap populated directly (no tracking pass) for exercising the
+    engine's bundle-adjustment paths at global-BA scale: cameras on an arc
+    observing a point cloud, pixel-noise observations wired through
+    ``kf_pt_idx`` / ``pt_obs`` exactly as tracking would, keyframe feature
+    snapshots carrying the observed (u, v, u_right). Initial poses and
+    points are perturbed from ground truth; keyframe 0 is exact (the gauge
+    anchor). The numpy draws are those of the JAX package's function, in
+    the same order, so one seed gives both packages the same map.
+
+    Returns (map, gt_poses, gt_pts), the ground truth as the target of
+    assertions.
+    """
+    import torch
+
+    from ..geometry import se3
+    from ..models.frame import FrameData
+    from ..models.map import HostFrame, SlamMap
+
+    rng = np.random.default_rng(seed)
+    m = SlamMap(cfg, device=device)
+    cam = cfg.camera
+    n_cap = cfg.orb.max_keypoints
+    nl_cap = cfg.lines.max_lines
+    obs_per_kf = min(obs_per_kf, n_cap)
+
+    gt_poses = []
+    for i in range(n_kf):
+        ang = 0.5 * np.sin(2 * np.pi * i / n_kf)
+        Rwc = se3.so3_exp(torch.tensor([0.0, ang, 0.0], dtype=torch.float32)).numpy()
+        c = np.array([1.2 * np.sin(ang), 0.02 * i % 0.6, -0.4 * np.cos(ang)], np.float32)
+        R = Rwc.T.astype(np.float32)
+        gt_poses.append((R, (-R @ c).astype(np.float32)))
+    gt_pts = rng.uniform([-2, -1.5, 2.0], [2, 1.5, 6.0], (n_pts, 3)).astype(np.float32)
+
+    # register the landmarks (perturbed) once
+    pids = []
+    for p in range(n_pts):
+        pw = gt_pts[p] + rng.normal(0, pt_pert, 3).astype(np.float32)
+        pids.append(m.add_point(pw, np.zeros(32, np.uint8), np.array([0, 0, 1], np.float32),
+                                0.1, 100.0, 0))
+    pids = np.array(pids, np.int32)
+
+    z = np.zeros
+    for i, (R, t) in enumerate(gt_poses):
+        if i == 0:
+            Rp, tp = R, t
+        else:
+            xi = rng.standard_normal(6).astype(np.float32) * pose_pert
+            Rj, tj = se3.left_update(torch.from_numpy(xi), torch.from_numpy(R),
+                                     torch.from_numpy(t))
+            Rp, tp = Rj.numpy(), tj.numpy()
+        sel = rng.choice(n_pts, size=obs_per_kf, replace=False)
+        pc = gt_pts[sel] @ R.T + t
+        ok = pc[:, 2] > 0.3
+        u = cam.fx * pc[:, 0] / np.maximum(pc[:, 2], 1e-6) + cam.cx
+        v = cam.fy * pc[:, 1] / np.maximum(pc[:, 2], 1e-6) + cam.cy
+        ok &= (u > 5) & (u < cam.width - 5) & (v > 5) & (v < cam.height - 5)
+        u = u + rng.normal(0, noise, obs_per_kf)
+        v = v + rng.normal(0, noise, obs_per_kf)
+        ur = u - cam.bf / np.maximum(pc[:, 2], 1e-6) + rng.normal(0, noise, obs_per_kf)
+        kp_xy = z((n_cap, 2), np.float32)
+        kp_ur = np.full(n_cap, -1.0, np.float32)
+        kp_valid = z(n_cap, bool)
+        idx = np.nonzero(ok)[0]
+        k = len(idx)
+        kp_xy[:k, 0], kp_xy[:k, 1] = u[idx], v[idx]
+        kp_ur[:k] = ur[idx]
+        kp_valid[:k] = True
+        fd = FrameData(
+            kp_xy=kp_xy, kp_xy_un=kp_xy, kp_resp=z(n_cap, np.float32),
+            kp_octave=z(n_cap, np.int32), kp_angle=z(n_cap, np.float32),
+            kp_desc=z((n_cap, 32), np.uint8), kp_depth=z(n_cap, np.float32), kp_ur=kp_ur,
+            kp_valid=kp_valid, ln_ep=z((nl_cap, 2, 2), np.float32),
+            ln_ep_un=z((nl_cap, 2, 2), np.float32), ln_angle=z(nl_cap, np.float32),
+            ln_length=z(nl_cap, np.float32), ln_coeff=z((nl_cap, 3), np.float32),
+            ln_desc=z((nl_cap, 72), np.uint8), ln_depth=z((nl_cap, 2), np.float32),
+            ln_valid=z(nl_cap, bool),
+        )
+        kf = m.add_keyframe(HostFrame(fd), Rp, tp, i, i / 30.0)
+        for feat, j in enumerate(idx):
+            m.add_point_obs(int(pids[sel[j]]), kf, feat)
+    return m, gt_poses, gt_pts

@@ -75,6 +75,32 @@ def load_rgb_depth(rgb_path: str, depth_path: str, depth_factor: float = 5000.0)
     return gray.astype(np.float32), depth
 
 
+def write_sequence(root: str, grays, depths, timestamps, cam, depth_factor: float = 5000.0):
+    """A TUM-format directory of uint8 gray and uint16 depth frames (depth
+    in ``depth_factor`` units): ``rgb/*.png`` as 8-bit RGB with equal
+    channels, ``depth/*.png`` as 16-bit gray, ``associate.txt`` and a
+    ``settings.yaml`` of ``cam`` in the reference's format, written with
+    ``utils.png_io`` (no OpenCV) at zlib level 1, the fastest to write."""
+    from .png_io import write_png
+
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    lines = []
+    for gray, depth, ts in zip(grays, depths, timestamps):
+        rgb_name, depth_name = f"rgb/{ts:.6f}.png", f"depth/{ts:.6f}.png"
+        write_png(os.path.join(root, rgb_name), np.repeat(gray[..., None], 3, -1), level=1)
+        write_png(os.path.join(root, depth_name), depth, level=1)
+        lines.append(f"{ts:.6f} {rgb_name} {ts:.6f} {depth_name}\n")
+    with open(os.path.join(root, "associate.txt"), "w") as f:
+        f.writelines(lines)
+    keys = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, k1=cam.k1, k2=cam.k2,
+                p1=cam.p1, p2=cam.p2, width=cam.width, height=cam.height, fps=30.0,
+                bf=cam.bf, RGB=1)
+    with open(os.path.join(root, "settings.yaml"), "w") as f:
+        f.write("%YAML:1.0\n" + "".join(f"Camera.{k}: {v}\n" for k, v in keys.items())
+                + f"ThDepth: 40.0\nDepthMapFactor: {depth_factor}\n")
+
+
 def save_trajectory_tum(path: str, timestamps, poses_twc):
     """Write TUM-format trajectory. ``poses_twc``: list of (R_wc, t_wc).
     The quaternions are computed on the CPU, all rows in one call."""

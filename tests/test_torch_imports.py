@@ -47,6 +47,8 @@ def test_every_module_imports_with_jax_blocked():
             "assert all(sys.modules[m] is None for m in bad), bad\n"
             "import plslam_torch.ops.cuda_build as cb\n"
             "assert not cb._loaded\n"
+            "import plslam_torch.native.loader as nl\n"
+            "assert nl._lib is None\n"
             "print('ok')\n")
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
@@ -81,13 +83,15 @@ def test_system_slice_modules_are_covered(name):
     assert not re.search(r"^(import|from)\s+(cv2|matplotlib)\b", open(path).read(), re.M)
 
 
-PARALLEL_SLICE = ("parallel", "parallel.multiseq")
+PARALLEL_SLICE = ("parallel", "parallel.multiseq", "parallel.mesh", "parallel.ba",
+                  "parallel.dryrun", "native", "native.loader", "utils.png_io")
 
 
 @pytest.mark.parametrize("name", PARALLEL_SLICE)
 def test_parallel_slice_modules_are_covered(name):
-    """The batched multi-sequence slice's modules are among those imported
-    above and searched below."""
+    """The modules of the batched multi-sequence slice and of the
+    distributed BA and native loader slice are among those imported above
+    and searched below; importing the native loader builds nothing."""
     assert "plslam_torch." + name in set(_modules())
     path = os.path.join(PKG, *name.split("."))
     path = os.path.join(path, "__init__.py") if os.path.isdir(path) else path + ".py"
@@ -97,7 +101,7 @@ def test_parallel_slice_modules_are_covered(name):
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
-            if f.endswith((".py", ".cu")):
+            if f.endswith((".py", ".cu", ".cc", ".h")):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
 

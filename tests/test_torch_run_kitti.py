@@ -3,9 +3,9 @@ KITTI odometry folder (image_0/, image_1/, times.txt) of rendered stereo
 pairs at 320x240, written with OpenCV, and a settings YAML in the
 reference's format with ``Camera.bf``. The runner writes one KITTI row of
 12 numbers per frame, the first the identity; ``load_yaml`` reads ``bf``
-as the JAX package's does; without OpenCV the runner exits with an error
-that names ROADMAP item 18. Also the TUM2 / TUM3 settings equal the JAX
-package's."""
+as the JAX package's does; the runner reads its PNGs through the port's
+own decoder, so it runs without OpenCV too (pairs written with
+``utils.png_io``). Also the TUM2 / TUM3 settings equal the JAX package's."""
 
 import dataclasses
 import sys
@@ -15,7 +15,7 @@ import pytest
 
 from plslam_tpu import config as jconfig
 from plslam_torch import config as tconfig
-from plslam_torch.utils import run_kitti
+from plslam_torch.utils import png_io, run_kitti
 from test_torch_stereo import KW, stereo_pairs
 from torch_parity import few_torch_threads  # noqa: F401
 
@@ -80,7 +80,22 @@ def test_tum_configs_match_jax(name):
         getattr(jconfig, name)())
 
 
-def test_run_kitti_without_opencv_names_item_18(tmp_path, monkeypatch, capsys):
+def test_run_kitti_without_opencv_names_item_18(tmp_path, monkeypatch):
+    """Without OpenCV the runner reads its pairs (the refusal that named
+    ROADMAP item 18 is gone with the native decoder)."""
+    seq = tmp_path / "00"
+    for cam in ("image_0", "image_1"):
+        (seq / cam).mkdir(parents=True)
+    pairs, _ = stereo_pairs(3, 100)
+    for i, (gl, gr) in enumerate(pairs):
+        png_io.write_png(seq / "image_0" / f"{i:06d}.png", gl)
+        png_io.write_png(seq / "image_1" / f"{i:06d}.png", gr)
+        np.testing.assert_array_equal(run_kitti.load_gray(str(seq / "image_0" / f"{i:06d}.png")),
+                                      gl)
+    np.savetxt(seq / "times.txt", np.arange(3) * 0.1)
     monkeypatch.setitem(sys.modules, "cv2", None)  # import cv2 raises ImportError
-    assert run_kitti.main([_settings(tmp_path), str(tmp_path), "--device", "cpu"]) == 2
-    assert "item 18" in capsys.readouterr().err
+    out = tmp_path / "out"
+    assert run_kitti.main([_settings(tmp_path), str(seq), "--out", str(out),
+                           "--device", "cpu"]) == 0
+    rows = np.loadtxt(out / "CameraTrajectory.txt", ndmin=2)
+    assert rows.shape == (3, 12) and np.isfinite(rows).all()
