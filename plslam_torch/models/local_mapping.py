@@ -41,6 +41,7 @@ import torch
 from ..config import SlamConfig
 from ..ops import line_matching, matching
 from ..optim import ba_cg, local_ba
+from ..utils import tracing
 from . import distinctive, triangulation
 from .map import SlamMap
 from .tracking import _to_host
@@ -190,17 +191,19 @@ class LocalMapper:
 
     # ------------------------------------------------------------------ main
     def process_keyframe(self, kf: int):
-        with self.lock:
-            self.map.update_spanning_tree(kf)  # ProcessNewKeyFrame tail
-            self.cull_points(kf)
-            self.cull_lines(kf)
-        self.triangulator.create_new_points(kf, mapper=self, lock=self.lock)
-        triangulation.create_new_lines(self.cfg, self.map, kf, mapper=self, lock=self.lock)
-        self.fuse(kf)
-        if self.enable_ba and self.map.n_kf > 2:
-            self.run_local_ba(kf)
-        with self.lock:
-            self.cull_keyframes(kf)
+        with tracing.span("map.keyframe", kf=kf, frame=int(self.map.kf_frame_id[kf])):
+            with self.lock:
+                self.map.update_spanning_tree(kf)  # ProcessNewKeyFrame tail
+                self.cull_points(kf)
+                self.cull_lines(kf)
+            self.triangulator.create_new_points(kf, mapper=self, lock=self.lock)
+            triangulation.create_new_lines(self.cfg, self.map, kf, mapper=self, lock=self.lock)
+            self.fuse(kf)
+            if self.enable_ba and self.map.n_kf > 2:
+                with tracing.span("map.local_ba"):
+                    self.run_local_ba(kf)
+            with self.lock:
+                self.cull_keyframes(kf)
 
     # ------------------------------------------------------------- culling
     def _cull(self, recent, current_kf, valid, found, visible, obs, erase):

@@ -24,7 +24,7 @@ import numpy as np
 from ..bow.database import KeyFrameDatabase
 from ..bow.vocabulary import Vocabulary, load_dbow2_text
 from ..config import SlamConfig
-from ..utils import checkpoint, gctune, tum_io
+from ..utils import checkpoint, gctune, tracing, tum_io
 from ..utils.tracing import Tracer
 from .async_mapping import AsyncLocalMapper, AsyncLoopCloser
 from .local_mapping import LocalMapper
@@ -65,6 +65,9 @@ class System:
         self.cfg = cfg
         self.sensor = sensor  # System eSensor (System.h:58-66)
         self.tracer = Tracer(trace_path)
+        if trace_path:
+            # the program's spans and counts go to the same file at shutdown
+            tracing.enable()
         vocab_path = vocabulary_path or _DEFAULT_VOCAB
         if vocab_path.endswith(".txt"):
             self.voc = load_dbow2_text(vocab_path, device=device)
@@ -156,6 +159,9 @@ class System:
         if isinstance(lm, AsyncLocalMapper):
             lm.wait_idle(timeout=30.0)
             lm.shutdown()
+        if self.tracer.enabled:
+            self.tracer.emit_recording()
+            tracing.disable()
         self.tracer.close()
         if gctune.is_tuned():
             gctune.collect_old()  # safe point: nothing in flight

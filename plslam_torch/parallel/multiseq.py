@@ -33,6 +33,7 @@ import torch
 from ..config import SlamConfig
 from ..models import tracking as T
 from ..models.frame import FrameData
+from ..utils import tracing
 
 
 def stack_args(args: list[tuple]) -> tuple:
@@ -87,45 +88,53 @@ class MultiTracker:
         self.cfg = first.cfg
         self.sensor = first.sensor
         self.device = first.device
+        for i, tr in enumerate(self.trackers):
+            tr.session = i
         # batched steps run, and sequence-steps they carried (for the rate)
         self.steps = 0
         self.batched_frames = 0
 
     def process(self, frames, timestamps):
         """``frames``: per sequence (gray, depth), or (left, right) for
-        stereo trackers; ``timestamps``: per sequence. Returns each sequence's result of ``Tracker.process``
-        (the previous frame's pose, or None).
+        stereo trackers; ``timestamps``: per sequence. Returns each
+        sequence's result of ``Tracker.process`` (the previous frame's pose,
+        or None).
 
         Trackers in OK state with a local map take one batched step; the
         others step solo through ``Tracker.process``."""
-        results = [None] * len(self.trackers)
-        batch = []
-        for i, (tr, (g, d)) in enumerate(zip(self.trackers, frames)):
-            if tr.state != T.OK or tr._lm_args is None:
-                results[i] = tr.process(g, d, timestamps[i])
-            else:
-                batch.append((i, g, d))
-        if not batch:
+        batch = [i for i, tr in enumerate(self.trackers)
+                 if tr.state == T.OK and tr._lm_args is not None]
+        # every tracker counts one frame a step: the span's frame ids are
+        # theirs once counted
+        with tracing.span("multi.step", step=self.steps, batched=len(batch),
+                          frame=[tr.frame_id + 1 for tr in self.trackers]):
+            results = [None] * len(self.trackers)
+            for i, (tr, (g, d)) in enumerate(zip(self.trackers, frames)):
+                if i not in batch:
+                    results[i] = tr.process(g, d, timestamps[i])
+            if not batch:
+                return results
+            grays, depths, args = [], [], []
+            for i in batch:
+                tr = self.trackers[i]
+                tr.begin_frame()
+                gq, dq = tr._quantize_inputs(*frames[i])
+                grays.append(gq)
+                depths.append(dq if self.sensor == "stereo" else dq.astype(np.int32))
+                args.append(tr.dispatch_args())
+            with tracing.span("sync.upload"):
+                gray = torch.from_numpy(np.stack(grays)).to(self.device)
+                depth = torch.from_numpy(np.stack(depths)).to(self.device)
+            out = batched_step(self.cfg, gray, depth, stack_args(args),
+                               stereo=self.sensor == "stereo")
+            record = T.BatchRecord(out)
+            for b, i in enumerate(batch):
+                results[i] = self.trackers[i].process(
+                    None, None, timestamps[i], precomputed_out=slice_out(out, b),
+                    host_record=functools.partial(record.row, b))
+            self.steps += 1
+            self.batched_frames += len(batch)
             return results
-        grays, depths, args = [], [], []
-        for i, g, d in batch:
-            tr = self.trackers[i]
-            tr.begin_frame()
-            gq, dq = tr._quantize_inputs(g, d)
-            grays.append(gq)
-            depths.append(dq if self.sensor == "stereo" else dq.astype(np.int32))
-            args.append(tr.dispatch_args())
-        out = batched_step(self.cfg, torch.from_numpy(np.stack(grays)).to(self.device),
-                           torch.from_numpy(np.stack(depths)).to(self.device),
-                           stack_args(args), stereo=self.sensor == "stereo")
-        record = T.BatchRecord(out)
-        for b, (i, _, _) in enumerate(batch):
-            results[i] = self.trackers[i].process(
-                None, None, timestamps[i], precomputed_out=slice_out(out, b),
-                host_record=functools.partial(record.row, b))
-        self.steps += 1
-        self.batched_frames += len(batch)
-        return results
 
     def flush(self):
         """Drain every tracker's in-flight frames."""

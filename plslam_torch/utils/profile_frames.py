@@ -8,7 +8,8 @@ Renders the synthetic room (640x480, the chip_smoke.py sequence), tracks
 host-op tracing on top of that takes minutes to post-process) and prints:
 host wall time per frame, the device-busy share (the union of kernel
 intervals over the window), the top CUDA kernels by device time, and the
-host time per tracker stage (host clock, no synchronisation inside).
+host time per tracker stage (the program's own spans, utils.tracing, on the
+host clock).
 With ``--batch B`` it tracks B sequences (RoomScene(0..B-1) on the same
 trajectory) through one ``parallel.multiseq.MultiTracker``, and every
 number is per batched step of B sequence-frames.
@@ -57,6 +58,7 @@ def main():
     from ..models import tracking
     from ..models.map import SlamMap
     from ..parallel.multiseq import MultiTracker
+    from . import tracing
     from .synthetic import RoomScene, smooth_trajectory
 
     cfg = SlamConfig(camera=Camera(fx=525.0, fy=525.0, cx=319.5, cy=239.5, bf=40.0))
@@ -81,26 +83,12 @@ def main():
         step(i)
     torch.cuda.synchronize()
 
-    # time the stages of the fused step on the host clock (pose nests inside
-    # motion and local)
-    stages = {"build_frame": (tracking.mframe, "build_frame"),
-              "motion": (tracking, "_motion_core"),
-              "local": (tracking, "_local_core"),
-              "pose": (tracking.pose_opt, "optimize_pose"),
-              "finish": (tracking.Tracker, "_finish")}
-    originals = {}
-    stage_s = dict.fromkeys(stages, 0.0)
-    for label, (owner, name) in stages.items():
-        fn = getattr(owner, name)
-        originals[label] = (owner, name, fn)
-
-        def wrapped(*a, _fn=fn, _label=label, **k):
-            s = time.perf_counter()
-            try:
-                return _fn(*a, **k)
-            finally:
-                stage_s[_label] += time.perf_counter() - s
-        setattr(owner, name, wrapped)
+    # the stages' host time from the program's own spans (pose_lm nests
+    # inside track.motion and track.local)
+    label_of = {"track.perception": "build_frame", "track.motion": "motion",
+                "track.local": "local", "pose_lm": "pose", "track.finish": "finish"}
+    tracing.reset()
+    tracing.enable()
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -109,8 +97,11 @@ def main():
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     finally:
-        for owner, name, fn in originals.values():
-            setattr(owner, name, fn)
+        tracing.disable()
+    stage_s = dict.fromkeys(label_of.values(), 0.0)
+    for sp in tracing.spans():
+        if sp["name"] in label_of and sp["start"] >= t0:
+            stage_s[label_of[sp["name"]]] += sp["end"] - sp["start"]
 
     events = prof.events()
     busy = _busy_ms(events)
