@@ -22,6 +22,8 @@ import os
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 DEFAULT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vocab_synth.npz")
 
 _POPCNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
@@ -49,19 +51,21 @@ class Vocabulary:
     def transform(self, desc: torch.Tensor, valid: torch.Tensor):
         """Descriptors (N, 32) uint8 -> (word ids (N,) int32, bow (W,)
         tf-idf, L1-normalized). The descent is branch-free:
-        node = node * k + argmin over the k children's distances."""
-        node = torch.zeros(desc.shape[0], dtype=torch.int64, device=desc.device)
-        for lvl in self.node_desc:
-            base = node * self.k
-            child_desc = lvl[base[:, None] + self._child[None, :]]  # (N, k, 32)
-            x = torch.bitwise_xor(child_desc, desc[:, None, :])
-            d = self._popcnt[x.long()].sum(-1)                      # (N, k)
-            node = base + torch.argmin(d, dim=1)                    # first minimum
-        tf = torch.zeros(self.n_words, dtype=torch.float32, device=desc.device)
-        tf = tf.index_add_(0, node, valid.float())
-        v = tf * self.idf
-        norm = v.abs().sum()
-        return node.to(torch.int32), v / torch.where(norm > 0, norm, torch.ones_like(norm))
+        node = node * k + argmin over the k children's distances. A
+        ``bow.transform`` span while the recorder of utils.tracing is on."""
+        with tracing.span("bow.transform"):
+            node = torch.zeros(desc.shape[0], dtype=torch.int64, device=desc.device)
+            for lvl in self.node_desc:
+                base = node * self.k
+                child_desc = lvl[base[:, None] + self._child[None, :]]  # (N, k, 32)
+                x = torch.bitwise_xor(child_desc, desc[:, None, :])
+                d = self._popcnt[x.long()].sum(-1)                      # (N, k)
+                node = base + torch.argmin(d, dim=1)                    # first minimum
+            tf = torch.zeros(self.n_words, dtype=torch.float32, device=desc.device)
+            tf = tf.index_add_(0, node, valid.float())
+            v = tf * self.idf
+            norm = v.abs().sum()
+            return node.to(torch.int32), v / torch.where(norm > 0, norm, torch.ones_like(norm))
 
     # ---------------------------------------------------------------- saving
     def save(self, path: str):

@@ -25,6 +25,11 @@ The port of the JAX package's ``models/loop_closing.py``, the reference's
   landmark transport, and a global BA through the local mapper's gatherer
   (dense Schur, or the matrix-free PCG past ``ba_dense_camera_cap``).
 
+While the recorder of utils.tracing is on, a keyframe's pass is a
+``loop.keyframe`` span over ``loop.detect``, ``loop.relative`` and
+``loop.correct`` > ``loop.gba``, with counts ``loop.candidates`` and
+``loop.closed``.
+
 The corrected pose reaches the tracker through its gauge-correction
 protocol (``Tracker.apply_gauge_correction``), not through a stop of the
 tracker. RANSAC draws come from a ``torch.Generator`` on the map's device
@@ -47,6 +52,7 @@ import torch
 from ..config import SlamConfig
 from ..ops import line_matching, matching
 from ..optim import horn, pose_graph
+from ..utils import tracing
 from .local_mapping import fuse_multi_step, fuse_step
 from .map import SlamMap
 from .tracking import _to_host
@@ -174,21 +180,27 @@ class LoopCloser:
 
     # ------------------------------------------------------------------ main
     def process_keyframe(self, kf: int):
-        if self.map.n_kf < self.cfg.loop.min_kf_gap:
-            return
-        if kf < self.last_loop_kf + self.cfg.loop.min_kf_gap:
-            return
-        with self.lock:  # host walks over live map state
-            cands = self._detect_loop(kf)
-        for cand in cands:
-            out = self._compute_relative(kf, cand)
-            if out is not None:
-                R12, t12, s12, _ = out
-                self._correct_loop(kf, cand, R12, t12, s12)
-                self.n_loops_closed += 1
-                self.last_loop_kf = kf
-                self.last_loop_pair = (kf, cand)
+        with tracing.span("loop.keyframe", kf=kf):
+            if self.map.n_kf < self.cfg.loop.min_kf_gap:
                 return
+            if kf < self.last_loop_kf + self.cfg.loop.min_kf_gap:
+                return
+            with self.lock:  # host walks over live map state
+                with tracing.span("loop.detect"):
+                    cands = self._detect_loop(kf)
+            tracing.count("loop.candidates", len(cands))
+            for cand in cands:
+                with tracing.span("loop.relative"):
+                    out = self._compute_relative(kf, cand)
+                if out is not None:
+                    R12, t12, s12, _ = out
+                    with tracing.span("loop.correct"):
+                        self._correct_loop(kf, cand, R12, t12, s12)
+                    tracing.count("loop.closed")
+                    self.n_loops_closed += 1
+                    self.last_loop_kf = kf
+                    self.last_loop_pair = (kf, cand)
+                    return
 
     # ----------------------------------------------------------- detection
     def _detect_loop(self, kf: int) -> list[int]:
@@ -435,7 +447,8 @@ class LoopCloser:
         # global BA (the reference spawns a GBA thread; here it runs on the
         # thread that called, a worker under AsyncLoopCloser)
         if self.enable_gba:
-            self._global_ba(kf1)
+            with tracing.span("loop.gba"):
+                self._global_ba(kf1)
         with self.lock:
             m.loop_edges.append((kf2, kf1))  # KeyFrame::AddLoopEdge
             m.big_change_idx += 1

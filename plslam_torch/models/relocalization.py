@@ -21,9 +21,16 @@ RANSAC draws come from a ``torch.Generator`` on the map's device seeded
 from (frame id, candidate), or are injected to reproduce another
 implementation's draws. EPnP is only computed when Horn has < 12 inliers;
 it draws after Horn, so Horn's result does not depend on it.
+
+While the recorder of utils.tracing is on, a relocalization is a ``reloc``
+span with its query (``reloc.query``) and each candidate try
+(``reloc.candidate``) under it, and counts ``reloc.tries`` and
+``reloc.candidates``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -34,6 +41,7 @@ from ..geometry import projection as gproj
 from ..ops import matching
 from ..optim import epnp, horn
 from ..optim import pose as pose_opt
+from ..utils import tracing
 from .frame import FrameData
 
 RELOC_ACCEPT_INLIERS = 50
@@ -135,17 +143,24 @@ def try_relocalize(tracker, fd: FrameData):
     if tracker.kfdb is None or tracker.voc is None:
         return None
     m = tracker.map
-    _, bow = tracker.voc.transform(fd.kp_desc, fd.kp_valid)
-    bow = sparse_bow(bow)
-    with tracker._map_lock:
-        cands = tracker.kfdb.detect_reloc_candidates(bow, m)
+    tracing.count("reloc.tries")
+    with tracing.span("reloc"), contextlib.ExitStack() as held:
+        with tracing.span("reloc.query"):
+            _, bow = tracker.voc.transform(fd.kp_desc, fd.kp_valid)
+            bow = sparse_bow(bow)
+            held.enter_context(tracing.locked(tracker._map_lock))
+            cands = tracker.kfdb.detect_reloc_candidates(bow, m)
         for ci, kf in enumerate(cands[:5]):
-            has, ptw = candidate_inputs(m, kf)
-            dkf = m.device_frame(kf)  # descriptors and angles stay on the device
-            R, t, idx, inl, n = reloc_candidate_step(
-                tracker.cfg, fd, dkf.kp_desc, dkf.kp_angle, has, ptw,
-                reloc_generator(m.device, tracker.frame_id, ci))
-            if int(n) >= RELOC_ACCEPT_INLIERS:
+            tracing.count("reloc.candidates")
+            with tracing.span("reloc.candidate", kf=int(kf)) as sp:
+                has, ptw = candidate_inputs(m, kf)
+                dkf = m.device_frame(kf)  # descriptors and angles stay on the device
+                R, t, idx, inl, n = reloc_candidate_step(
+                    tracker.cfg, fd, dkf.kp_desc, dkf.kp_angle, has, ptw,
+                    reloc_generator(m.device, tracker.frame_id, ci))
+                n = int(n)
+                sp.set(n_inliers=n)
+            if n >= RELOC_ACCEPT_INLIERS:
                 R, t, idx, inl = (x.cpu().numpy() for x in (R, t, idx, inl))
                 pids = m.kf_pt_idx[kf]
                 cur_pt_ids = np.full(len(pids), -1, np.int32)

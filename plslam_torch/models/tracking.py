@@ -52,7 +52,8 @@ protocol (``apply_gauge_correction``). With a ``tracer``
 (utils.tracing) every retired frame writes a "frame" record and every
 relocalization a "reloc" record, with the JAX package's fields; while the
 recorder of utils.tracing is on, the frame, its stages, its host syncs and
-its map-lock waits are recorded as spans.
+its map-lock waits are recorded as spans, and the frames handled in LOST
+and the relocalizations taken are counted.
 """
 
 from __future__ import annotations
@@ -678,6 +679,7 @@ class Tracker:
                     return self.last_pose
                 return None
             if self.state == LOST:
+                tracing.count("track.lost")
                 self._prev_fd = self._build_frame(gray, depth)
                 if self._try_relocalize(timestamp):
                     return self.last_pose
@@ -724,6 +726,7 @@ class Tracker:
                 self._queue.clear()
                 self.n_lost_frames += 1
                 self.state = LOST
+                tracing.count("track.lost")
                 self._prev_slot_pt = torch.full_like(self._prev_slot_pt, -1)
                 self._prev_slot_ln = torch.full_like(self._prev_slot_ln, -1)
                 self._has_vel = False
@@ -896,6 +899,7 @@ class Tracker:
         # the relocalized pose is in the map's current gauge: drop a
         # correction published for the abandoned pre-LOST state
         self._pending_gauge = None
+        tracing.count("reloc.won")
         if self.tracer.enabled:
             self.tracer.emit("reloc", frame=int(self.frame_id), ts=timestamp,
                              n_lost=int(self.n_lost_frames))
@@ -1454,8 +1458,9 @@ class Tracker:
         """A new keyframe's bag of words into the database; the database
         takes the nonzero (word, weight) pairs."""
         if self.kfdb is not None and self.voc is not None:
-            _, bow = self.voc.transform(fd.kp_desc, fd.kp_valid)
-            self.kfdb.add(kf, sparse_bow(bow))
+            with tracing.span("track.bow"):
+                _, bow = self.voc.transform(fd.kp_desc, fd.kp_valid)
+                self.kfdb.add(kf, sparse_bow(bow))
 
     def _create_landmarks_from_depth(self, kf, host, R, t, cur_pt_ids,
                                      close_only: bool) -> np.ndarray:

@@ -44,7 +44,22 @@ The names, and where they are opened:
   (its one host copy), ``track.keyframe`` and ``track.local_map``;
 - ``lock.wait``: the tracker's map-lock acquisitions on the frame path;
 - ``map.keyframe`` (attr ``kf``, ``frame``: the keyframe's frame): a local
-  mapper's pass, with ``map.local_ba``.
+  mapper's pass, with ``map.local_ba``;
+- ``reloc``: ``relocalization.try_relocalize``, with ``reloc.query`` (the
+  bag of words and the database query) and ``reloc.candidate`` (attrs
+  ``kf`` and ``n_inliers``: one candidate's match, solve and pose LM);
+  counts ``reloc.tries`` (calls), ``reloc.candidates`` (candidates tried)
+  and ``reloc.won`` (relocalizations the tracker took); ``track.lost``
+  counts the frames ``Tracker.process`` handles in LOST, and the frame on
+  which tracking is lost;
+- ``bow.transform``: ``Vocabulary.transform``; ``track.bow``: a keyframe's
+  bag of words into the database (``Tracker._register_bow``);
+- ``loop.keyframe`` (attr ``kf``): ``LoopCloser.process_keyframe``, with
+  ``loop.detect``, ``loop.relative`` (one candidate's relative-pose solve)
+  and ``loop.correct`` > ``loop.gba``; counts ``loop.candidates`` (the
+  consistent candidates detected) and ``loop.closed``.
+
+A span's ``set(**attrs)`` adds attrs known only once its work has run.
 """
 
 from __future__ import annotations
@@ -116,6 +131,9 @@ class _Noop:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs):
+        pass
+
 
 NOOP = _Noop()
 
@@ -164,6 +182,10 @@ class _Span:
             r[_END] = time.perf_counter()
             self._stack.pop()
         return False
+
+    def set(self, **attrs):
+        """Adds ``attrs`` to the span's record."""
+        self._attrs.update(attrs)
 
 
 class _Locked:
